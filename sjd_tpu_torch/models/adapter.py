@@ -1,0 +1,28 @@
+"""Bind a decoder config into the engine's ModelFns interface
+(sjd_tpu/models/adapter.py)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from .. import resolve_device
+from ..core.engine import ModelFns
+from . import transformer
+
+
+def decoder_model_fns(cfg: transformer.DecoderConfig, *,
+                      max_positions: Optional[int] = None, device=None) -> ModelFns:
+    """ModelFns for the decoder on ``device``, with a precomputed RoPE table."""
+    dev = resolve_device(device)
+    rope = transformer.make_rope_table(cfg, max_positions, device=dev)
+
+    def forward(params, ids, positions, kv, cache_end, valid, logits_tail=None):
+        out = transformer.forward(params, cfg, ids, positions, kv, cache_end,
+                                  valid, rope, logits_tail=logits_tail)
+        return out.logits, out.kv
+
+    def init_cache(batch: int, buf_len: int):
+        return transformer.init_kv_cache(cfg, batch, buf_len, device=dev)
+
+    return ModelFns(forward=forward, init_cache=init_cache,
+                    vocab_size=cfg.vocab_size, device=dev)

@@ -1,0 +1,33 @@
+"""sjd_tpu_torch imports neither JAX nor any module of sjd_tpu: the machine
+with the GPU has no JAX, so either import would break the port there."""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import sjd_tpu_torch
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["jaxlib"] = None
+import sjd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "sjd_tpu" or m.startswith("sjd_tpu."))
+print(json.dumps({"n_modules": len(names), "leaked": leaked}))
+"""
+
+
+def test_port_imports_no_jax_and_no_sjd_tpu():
+    root = Path(sjd_tpu_torch.__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    expected = len(list(pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")))
+    assert seen["n_modules"] == expected >= 15
+    assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"
