@@ -184,7 +184,7 @@ def phase_attention(dev):
     import torch.nn.functional as F
 
     from sjd_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain, decode_masks)
+        _entry, decode_attention, decode_attention_plain, decode_masks)
     from sjd_tpu_torch.ops.fused_epilogue import quantize_rows
 
     S, W, H, Hkv, D, NL, L = 2, 16, 32, 32, 128, 32, 2560
@@ -206,7 +206,7 @@ def phase_attention(dev):
     valid[1, :P - 1] = False  # the CFG uncond half masks its prompt rows
     results, worst = [], 0.0
     for kind, (k, v, kscale, vscale) in caches.items():
-        for fill in (150, 1200, 2400):
+        for fill in (150, 1200, 2400, L - W):
             cache_end = torch.full((S,), fill, dtype=torch.int32, device=dev)
             call = lambda: decode_attention(q, k, v, kscale, vscale, cache_end,  # noqa: E731
                                             valid, window=W, layer=layer)
@@ -238,11 +238,18 @@ def phase_attention(dev):
                        + 2 * 2 * S * W * H * D + S * L + 4 * S)
             n_ops = 4 * S * W * H * D * min(fill + W, L)
             b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+            # the grid covers every split of the buffer; blocks of dead
+            # splits return at once
+            split_rows = _entry()[1]
+            splits = math.ceil(L / split_rows)
+            live_blocks = math.ceil(W * H // Hkv / 16) * Hkv * S * math.ceil(
+                min(fill + W, L) / split_rows)
             row = dict(name="decode_attention", cache=kind, fill=fill,
                        shape=dict(S=S, W=W, H=H, Hkv=Hkv, D=D, NL=NL, L=L, layer=layer),
                        max_abs_err=err, tolerance=tol, ok=ok, ms=ms, eager_ms=call_ms,
                        plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                       splits=splits, live_blocks=live_blocks, bound_share=b_ms / ms)
             emit("kernel", **row)
             check(ok, f"decode_attention ({kind} cache, fill {fill}) disagrees with "
                       "its plain version")

@@ -17,6 +17,7 @@ and what its design does about it, is written at the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -27,6 +28,26 @@ from ._build import load, ptr
 Tensor = torch.Tensor
 NEG_INF = float(torch.finfo(torch.float32).min)
 _KERNEL_HEAD_DIMS = (64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point and the cache rows of one split (a
+    constant of the CUDA source), typed once when the library is loaded (not
+    on every call: the caller's host path is the bottleneck)."""
+    lib = load("decode_attention")
+    fn = lib.sjd_decode_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.sjd_decode_attention_split_rows.restype = ctypes.c_int
+    return fn, int(lib.sjd_decode_attention_split_rows())
+
+
+def partials_numel(S: int, W: int, H: int, Hkv: int, D: int, L: int) -> int:
+    """f32 elements of the kernel's scratch: per split of the buffer, per
+    KV head, unnormalised acc [W * group, D] and (m, l) per row."""
+    n_split = -(-L // _entry()[1])
+    return S * n_split * Hkv * W * (H // Hkv) * (D + 2)
 
 
 def decode_masks(cache_end: Tensor, valid: Tensor, T: int, L: int) -> Tensor:
@@ -119,20 +140,19 @@ def decode_attention(
                                           t.is_contiguous())
             raise ValueError(f"decode_attention: expected a contiguous {dtype} "
                              f"tensor {shape} on {q.device}, got {got}")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode_attention: K/V caches must be 16-byte aligned")
+    if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention: q and the K/V caches must be 16-byte aligned")
 
+    fn = _entry()[0]
     out = torch.empty_like(q)
-    lib = load("decode_attention")
-    fn = lib.sjd_decode_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    # the merge reads only the splits the kernel wrote, so no initialisation
+    partials = torch.empty(partials_numel(S, W, H, Hkv, D, L), dtype=torch.float32,
+                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale),
-                ptr(v_scale), ptr(cache_end), ptr(valid), ptr(out),
-                S, W, H, Hkv, D, NL, L, layer, int(quantized),
-                ctypes.c_void_p(stream))
+                ptr(v_scale), ptr(cache_end), ptr(valid), ptr(out), ptr(partials),
+                S, W, H, Hkv, D, NL, L, layer, int(quantized), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")
     decode_attention.launches += 1

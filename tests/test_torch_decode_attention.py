@@ -5,6 +5,8 @@ inputs. Tolerance 2e-5 in f32 (the two sum in another order; the Pallas
 kernel also merges chunks with an online softmax) and 1e-2 in bf16 (one
 rounding of the bf16 output)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,8 @@ import jax.numpy as jnp
 
 from sjd_tpu.models.transformer import _quantize_rows as jax_quantize_rows
 from sjd_tpu.ops.decode_attention import decode_attention as jax_decode_attention
-from sjd_tpu_torch.ops.decode_attention import decode_attention
+from sjd_tpu_torch.ops.decode_attention import (
+    NEG_INF, decode_attention, decode_attention_plain, decode_masks)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
@@ -104,3 +107,64 @@ def test_plain_attention_stacked_layer_select(quantize):
         # and the stacked path equals the port's own single-layer call
         got1, _ = _both(q, k[:, li], v[:, li], [10, 40], valid, quantize=quantize)
         np.testing.assert_array_equal(got, got1)
+
+
+def _split_merge(q, k, v, ks, vs, cache_end, valid, split):
+    """A plain mirror of the CUDA kernel's split-K arithmetic: per split of
+    ``split`` live cache rows, unnormalised partials (m, l, acc) under the
+    finite NEG_INF mask, then the merge m* = max m_i,
+    out = sum e^(m_i - m*) acc_i / max(sum e^(m_i - m*) l_i, 1e-37)."""
+    S, W, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scores = torch.einsum("swhgd,slhd->shgwl", q.reshape(S, W, Hkv, group, D), k)
+    kscale = (ks if ks is not None else torch.ones(S, L, Hkv)) / math.sqrt(D)
+    scores = scores * kscale.permute(0, 2, 1)[:, :, None, None, :]
+    mask = decode_masks(cache_end, valid, W, L)[:, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    vscale = (vs if vs is not None else torch.ones(S, L, Hkv)).permute(0, 2, 1)
+    out = torch.empty(S, Hkv, group, W, D)
+    for s in range(S):
+        n_live = min(int(cache_end[s]) + W, L)
+        parts = []
+        for c0 in range(0, n_live, split):
+            c1 = min(c0 + split, n_live)
+            sc = scores[s, ..., c0:c1]
+            m = sc.max(-1).values
+            p = torch.exp(sc - m[..., None])
+            acc = torch.einsum("hgwl,lhd->hgwd", p * vscale[s, :, None, None, c0:c1],
+                               v[s, c0:c1])
+            parts.append((m, p.sum(-1), acc))
+        m_star = torch.stack([m for m, _, _ in parts]).max(0).values
+        e = [torch.exp(m - m_star) for m, _, _ in parts]
+        num = sum(ei[..., None] * acc for ei, (_, _, acc) in zip(e, parts))
+        den = sum(ei * lv for ei, (_, lv, _) in zip(e, parts))
+        out[s] = num / torch.clamp_min(den, 1e-37)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(S, W, H, D)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_split_merge_matches_pallas_and_plain(quantize):
+    """Several splits of 16 rows; sample 1 masks its first 20 rows, so its
+    first split is wholly masked and must drop out of the merge."""
+    S, W, H, Hkv, D, L, split = 2, 4, 8, 2, 8, 64, 16
+    ce = [40, 50]
+    q, k, v = _case(5, S, W, H, Hkv, D, L)
+    valid = _valid(S, L, {1: 20})
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    jks = jvs = None
+    if quantize:
+        jk, jks = jax_quantize_rows(jk)
+        jv, jvs = jax_quantize_rows(jv)
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jk, jv, jks, jvs, jnp.asarray(ce, jnp.int32), jnp.asarray(valid),
+        window=W, chunk=16, interpret=True))
+    t = lambda x: None if x is None else torch.from_numpy(np.asarray(x).astype(np.float32))  # noqa: E731
+    qt, kt, vt, kst, vst = torch.from_numpy(q), t(jk), t(jv), t(jks), t(jvs)
+    cet, validt = torch.tensor(ce, dtype=torch.int32), torch.from_numpy(valid)
+    got = _split_merge(qt, kt, vt, kst, vst, cet, validt, split=split).numpy()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    stack = lambda x: None if x is None else x[:, None]  # noqa: E731  (a 1-layer stack)
+    plain = decode_attention_plain(qt, stack(kt), stack(vt), stack(kst), stack(vst), cet,
+                                   validt, layer=0).numpy()
+    np.testing.assert_allclose(got, plain, **F32_TOL)

@@ -12,7 +12,8 @@ but sum in another order, so a bf16 output may differ by one rounding
 import pytest
 import torch
 
-from sjd_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from sjd_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_plain, partials_numel)
 from sjd_tpu_torch.ops.fused_epilogue import fused_epilogue, fused_epilogue_plain, quantize_rows
 
 pytestmark = pytest.mark.gpu
@@ -59,14 +60,24 @@ def test_epilogue_kernel_matches_plain(cuda, qk_norm, quantize):
             _bf16_close(a, b)
 
 
+# (S, W, H, Hkv, D, NL, L), cache_end per sample, masked leading rows per
+# sample (the CFG uncond half masks its prompt rows)
+ATTENTION_CASES = {
+    "mha128": ((2, 16, 32, 32, 128, 3, 1536), (700, 37), (0, 20)),  # main-path heads
+    "gqa64_odd": ((2, 16, 8, 2, 64, 2, 1100), (700, 37), (0, 20)),  # GQA group 4, ragged L
+    "w1": ((1, 1, 4, 4, 128, 1, 64), (63,), (20,)),  # one-row window
+    "mid_tile": ((2, 16, 32, 32, 128, 1, 2560), (1001, 530), (0, 20)),  # ends inside a tile
+    "all_live": ((2, 16, 32, 32, 128, 1, 1536), (1520, 1520), (0, 20)),  # cache_end + W == L
+    "mostly_dead": ((2, 16, 32, 32, 128, 1, 2560), (40, 5), (0, 3)),  # most splits dead
+    "masked_split": ((2, 16, 32, 32, 128, 1, 2560), (1200, 1200), (0, 600)),  # splits masked
+    "w32": ((2, 32, 32, 32, 128, 1, 1024), (600, 77), (0, 20)),  # two groups of 16 rows
+}
+
+
 @pytest.mark.parametrize("quantize", [True, False])
-@pytest.mark.parametrize("shape", [
-    (2, 16, 32, 32, 128, 3, 1536),  # main-path heads, 3 layers
-    (2, 16, 8, 2, 64, 2, 1100),     # GQA group 4, head_dim 64, ragged last tile
-    (1, 1, 4, 4, 128, 1, 64),       # one-row window
-], ids=["mha128", "gqa64_odd", "w1"])
-def test_attention_kernel_matches_plain(cuda, quantize, shape):
-    S, W, H, Hkv, D, NL, L = shape
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_kernel_matches_plain(cuda, quantize, case):
+    (S, W, H, Hkv, D, NL, L), ends, masked = ATTENTION_CASES[case]
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn((S, W, H, D), generator=g, device=cuda).to(torch.bfloat16)
     k = torch.randn((S, NL, L, Hkv, D), generator=g, device=cuda)
@@ -77,12 +88,24 @@ def test_attention_kernel_matches_plain(cuda, quantize, shape):
         v, vs = quantize_rows(v)
     else:
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-    ends = [min(L - W, x) for x in (700, 37)][:S]
     cache_end = torch.tensor(ends, dtype=torch.int32, device=cuda)
     valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
-    valid[-1, :20] = False  # masked prompt rows
+    for s, n in enumerate(masked):
+        valid[s, :n] = False
+    # f32 elements of the wrapper's two allocations: its bf16 output, then
+    # the partials scratch
+    sizes = (S * W * H * D // 2, partials_numel(S, W, H, Hkv, D, L))
     for layer in range(NL):
+        # replay those allocations with NaN-filled tensors and free them: the
+        # caching allocator, in the same state, hands the same blocks to the
+        # wrapper, so a merge that read a split the kernel did not write (a
+        # dead one) would give NaN
+        torch.cuda.empty_cache()
+        poison = [torch.full((n,), float("nan"), device=cuda) for n in sizes]
+        out_ptr = poison[0].data_ptr()
+        del poison
         got = decode_attention(q, k, v, ks, vs, cache_end, valid, window=W, layer=layer)
+        assert got.data_ptr() == out_ptr  # the replay reached the wrapper
         want = decode_attention_plain(q, k, v, ks, vs, cache_end, valid, layer=layer)
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
