@@ -14,7 +14,7 @@ twice over the same trajectory:
     only: device time by kernel name, device time per forward, the
     device's busy share (kernel time, which does not overlap on one
     stream, over the plain run's wall for the same window), and host
-    operators by self time.
+    operators by self time, and the kernel-launch API calls per forward.
 
 The cache fills as the image grows, so the windows see the attention cost
 at a few fills (``cache_rows``: sample 0's live cache rows at the window's
@@ -117,6 +117,9 @@ def main() -> int:
         kernels = [ev for ev in events if str(ev.device_type).endswith("CUDA")]
         host = [ev for ev in events if not str(ev.device_type).endswith("CUDA")]
         busy_ms = sum(device_us(ev) for ev in kernels) / 1e3
+        # kernel launches the host issued (cudaLaunchKernel and its kin)
+        launch_calls = {ev.key: ev.count / args.steps for ev in host
+                        if "LaunchKernel" in ev.key}
         top = sorted(kernels, key=device_us, reverse=True)[: args.top]
         top_host = sorted(host, key=lambda ev: ev.self_cpu_time_total, reverse=True)[: args.top]
         print(json.dumps({
@@ -127,6 +130,7 @@ def main() -> int:
             "ms_per_forward": 1e3 * wall / args.steps,
             "device_ms_per_forward": busy_ms / args.steps,
             "device_busy_share": busy_ms / 1e3 / wall,
+            "launch_calls_per_forward": launch_calls,
             "kernels": [{"name": ev.key[:120], "calls": ev.count,
                          "per_forward_ms": device_us(ev) / 1e3 / args.steps}
                         for ev in top],

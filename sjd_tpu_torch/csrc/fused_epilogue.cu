@@ -1,23 +1,46 @@
 // Fused per-layer attention epilogue for the SJD decode window, for Hopper
 // (sm_90a): per-head qk LayerNorm -> split-half RoPE -> symmetric int8 KV
-// quantization, in one launch.
+// quantization, with K, V and their scales written straight into one layer
+// of the stacked KV cache, in one launch.
 //
 // Replaces: sjd_tpu/ops/fused_epilogue.py, _epilogue_kernel (called through
-// fused_epilogue()). Same arithmetic, same cast points: the norm output and
+// fused_epilogue()), followed by sjd_tpu/models/transformer.py's
+// write_kv_layer. Same arithmetic, same cast points: the norm output and
 // the RoPE output are each rounded to bf16 before the next step, the int8
 // code is round-half-even of x / scale clipped to +-127, and the scale
-// (amax / 127, floored at 1e-8) is stored as bf16.
+// (amax * fl32(1/127), floored at 1e-8: XLA folds the reference's
+// amax / 127 into that multiply) is stored as bf16. Window row t of sample
+// s goes to cache row start + t of layer `layer`, where start follows
+// jax.lax.dynamic_update_slice: c = cache_end[s], plus L if negative, then
+// clamped to [0, L - T]. No other row is touched.
 //
-// What bounds it on the H100: neither bytes nor operations. At the main
-// path's shapes (S=2, T=16, Hq=Hkv=32, D=128) it reads ~0.8 MB and writes
-// ~0.4 MB, a fraction of a microsecond at 3.35 TB/s; the launch itself
-// costs more. The design therefore spends nothing on bandwidth tricks: one
-// block per (sample-row, head) keeps the D values of one head in registers
-// (thread i holds elements i and i + D/2, the pair RoPE rotates together),
-// reductions are a warp shuffle plus one shared-memory step, and every
-// output is written once. Every multiply and add uses the _rn intrinsics so
-// that nvcc cannot contract them into fused multiply-adds: the plain PyTorch
-// version rounds after each operation, and so does this kernel.
+// What bounds it on the H100: neither bytes nor operations, but its fixed
+// cost. At the main path's shapes (S=2, T=16, Hq=Hkv=32, D=128) it reads
+// ~0.85 MB and writes ~0.53 MB, 0.41 us at 3.35 TB/s, and does ~2.6 MFLOP;
+// a launch and one pass of dependent loads, shuffles and stores cost more.
+// So the design keeps the path from the first load to the last store short
+// and spends nothing on tiling:
+//
+// - One warp per (sample-row, head), kWarps = 4 warps per block: 96 heads
+//   of a row make 24 blocks of 128 threads, 768 blocks in all. 4 warps
+//   were faster than 8, 16 or 32 (PERF.md section 6).
+// - Registers. Lane l holds elements [lV, lV + V) and [D/2 + lV, D/2 + lV
+//   + V) of its head, V = D / 64: RoPE's partner pairs stay in one lane,
+//   and for D = 128 each half is one 4-byte bf16x2 load (a warp reads 128
+//   contiguous bytes per half).
+// - Reductions. Mean, variance and amax are five __shfl_xor_sync steps
+//   each. Every lane ends with the same value (the butterfly adds the same
+//   two numbers in each lane), so there is no shared memory and no
+//   __syncthreads anywhere in the kernel.
+// - cos/sin. A warp reads its row's values for its own elements once, as
+//   float2 for D = 128.
+// - Stores. int8 codes go out as 2-byte pairs and bf16 as bf16x2, straight
+//   into the cache rows; lane 0 writes the scale. q is the only fresh
+//   output, and nothing is read back to be scattered.
+//
+// Every multiply and add uses the _rn intrinsics so that nvcc cannot
+// contract them into fused multiply-adds: the plain PyTorch version rounds
+// after each operation, and so does this kernel.
 //
 // C interface (ctypes): sjd_fused_epilogue(...) returns cudaGetLastError().
 
@@ -27,38 +50,72 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;  // head_dim <= 256
+constexpr int kWarps = 4;  // heads per block
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float bf(const __nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr float kInv127 = 1.f / 127.f;  // correctly rounded, as XLA folds it
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Sum (kMax=false) or max (kMax=true) over the whole block. Every thread of
-// the block must call it; inactive threads pass the identity (0 for both:
-// the max is taken over absolute values).
+// Sum (kMax=false) or max (kMax=true) over the warp; every lane gets it.
 template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
+__device__ __forceinline__ float warp_reduce(float v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float w = __shfl_xor_sync(kFull, v, o);
     v = kMax ? fmaxf(v, w) : __fadd_rn(v, w);
   }
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  __syncthreads();  // red[] may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < n_warps; ++i) r = kMax ? fmaxf(r, red[i]) : __fadd_rn(r, red[i]);
-  return r;
+  return v;
 }
 
-// grid: (S * T, Hq + 2 * Hkv); block: D / 2 threads rounded up to a warp.
-// blockIdx.y picks the head: [0, Hq) query heads, then Hkv key heads, then
-// Hkv value heads.
-__global__ void epilogue_kernel(
+// V consecutive values at p, widened to f32 (V = 2: one 4-byte load).
+template <int V>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float (&x)[V]) {
+  if constexpr (V == 2) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[V]) {
+  if constexpr (V == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float (&x)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0], x[1]);
+  } else {
+    *p = __float2bfloat16_rn(x[0]);
+  }
+}
+
+// x holds integral values in [-127, 127].
+template <int V>
+__device__ __forceinline__ void store_i8(int8_t* p, const float (&x)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<char2*>(p) = make_char2((signed char)x[0], (signed char)x[1]);
+  } else {
+    *p = (int8_t)x[0];
+  }
+}
+
+// grid: (ceil((Hq + 2 * Hkv) / kWarps), S * T); block: kWarps warps.
+// Warp w of block x takes head x * kWarps + w of its row: [0, Hq) query
+// heads, then Hkv key heads, then Hkv value heads. D = 64 * V.
+template <int V>
+__global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
     const __nv_bfloat16* __restrict__ qp,   // [S*T, Hq*D]
     const __nv_bfloat16* __restrict__ kp,   // [S*T, Hkv*D]
     const __nv_bfloat16* __restrict__ vp,   // [S*T, Hkv*D]
@@ -68,18 +125,19 @@ __global__ void epilogue_kernel(
     const __nv_bfloat16* __restrict__ knb,
     const float* __restrict__ cos_t,        // [S*T, D]
     const float* __restrict__ sin_t,
+    const int* __restrict__ cache_end,      // [S]
     __nv_bfloat16* __restrict__ q_out,      // [S*T, Hq, D]
-    void* __restrict__ k_out,               // [S*T, Hkv, D] int8 or bf16
-    void* __restrict__ v_out,
-    __nv_bfloat16* __restrict__ ks_out,     // [S*T, Hkv] (quantize only)
-    __nv_bfloat16* __restrict__ vs_out,
-    int Hq, int Hkv, int D, int qk_norm, int quantize, float eps) {
-  __shared__ float red[kMaxThreads / 32];
-  const int row = blockIdx.x;
-  const int hh = blockIdx.y;
-  const int half = D / 2;
-  const int i = threadIdx.x;
-  const bool act = i < half;
+    void* __restrict__ k_cache,             // [S, NL, L, Hkv, D] int8 or bf16
+    void* __restrict__ v_cache,
+    __nv_bfloat16* __restrict__ k_scale,    // [S, NL, L, Hkv], null: bf16 cache
+    __nv_bfloat16* __restrict__ v_scale,
+    int T, int Hq, int Hkv, int NL, int L, int layer, int qk_norm, float eps) {
+  constexpr int D = 64 * V;
+  constexpr int kHalf = D / 2;
+  const int lane = threadIdx.x & 31;
+  const int hh = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.y;  // s * T + t
+  if (hh >= Hq + 2 * Hkv) return;  // whole warps: no shuffle is left short
 
   int kind, h, heads;
   const __nv_bfloat16* src;
@@ -90,83 +148,135 @@ __global__ void epilogue_kernel(
   } else {
     kind = 2; h = hh - Hq - Hkv; heads = Hkv; src = vp;
   }
-  const size_t base = ((size_t)row * heads + h) * D;  // same for input and output
-  float a = act ? bf(src[base + i]) : 0.f;
-  float b = act ? bf(src[base + i + half]) : 0.f;
+  const int e = lane * V;  // this lane's elements: [e, e+V) and [kHalf+e, kHalf+e+V)
+  const int smp = row / T;
 
+  // Every global load is issued here, before the first shuffle: at these
+  // sizes the kernel's time is its chain of dependent memory latencies.
+  const __nv_bfloat16* x = src + ((size_t)row * heads + h) * D;
+  float a[V], b[V];
+  load_bf16<V>(x + e, a);
+  load_bf16<V>(x + kHalf + e, b);
+  float ca[V], cb[V], sa[V], sb[V];  // cos, sin (q and k heads)
+  float na[V], nb[V], ma[V], mb[V];  // norm scale, bias (with qk_norm)
   if (kind < 2) {
+    const float* c = cos_t + (size_t)row * D;
+    const float* s = sin_t + (size_t)row * D;
+    load_f32<V>(c + e, ca);
+    load_f32<V>(c + kHalf + e, cb);
+    load_f32<V>(s + e, sa);
+    load_f32<V>(s + kHalf + e, sb);
     if (qk_norm) {
       const __nv_bfloat16* sc = (kind == 0 ? qns : kns) + (size_t)h * D;
       const __nv_bfloat16* bi = (kind == 0 ? qnb : knb) + (size_t)h * D;
-      const float mean = __fdiv_rn(block_reduce<false>(__fadd_rn(a, b), red), (float)D);
-      const float da = __fsub_rn(a, mean);
-      const float db = __fsub_rn(b, mean);
-      const float sq = act ? __fadd_rn(__fmul_rn(da, da), __fmul_rn(db, db)) : 0.f;
-      const float var = __fdiv_rn(block_reduce<false>(sq, red), (float)D);
+      load_bf16<V>(sc + e, na);
+      load_bf16<V>(sc + kHalf + e, nb);
+      load_bf16<V>(bi + e, ma);
+      load_bf16<V>(bi + kHalf + e, mb);
+    }
+  }
+  const int end = kind > 0 ? cache_end[smp] : 0;
+
+  if (kind < 2) {
+    if (qk_norm) {
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum = __fadd_rn(__fadd_rn(sum, a[i]), b[i]);
+      const float mean = __fdiv_rn(warp_reduce<false>(sum), (float)D);
+      float da[V], db[V], sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        da[i] = __fsub_rn(a[i], mean);
+        db[i] = __fsub_rn(b[i], mean);
+        sq = __fadd_rn(__fadd_rn(sq, __fmul_rn(da[i], da[i])), __fmul_rn(db[i], db[i]));
+      }
+      const float var = __fdiv_rn(warp_reduce<false>(sq), (float)D);
       const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
-      if (act) {
-        a = round_bf16(__fadd_rn(__fmul_rn(__fmul_rn(da, inv), bf(sc[i])), bf(bi[i])));
-        b = round_bf16(__fadd_rn(__fmul_rn(__fmul_rn(db, inv), bf(sc[i + half])),
-                                 bf(bi[i + half])));
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        a[i] = round_bf16(__fadd_rn(__fmul_rn(__fmul_rn(da[i], inv), na[i]), ma[i]));
+        b[i] = round_bf16(__fadd_rn(__fmul_rn(__fmul_rn(db[i], inv), nb[i]), mb[i]));
       }
     }
-    if (act) {
-      const float* c = cos_t + (size_t)row * D;
-      const float* s = sin_t + (size_t)row * D;
-      const float ra = __fadd_rn(__fmul_rn(a, c[i]), __fmul_rn(-b, s[i]));
-      const float rb = __fadd_rn(__fmul_rn(b, c[i + half]), __fmul_rn(a, s[i + half]));
-      a = round_bf16(ra);
-      b = round_bf16(rb);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float ra = __fadd_rn(__fmul_rn(a[i], ca[i]), __fmul_rn(-b[i], sa[i]));
+      const float rb = __fadd_rn(__fmul_rn(b[i], cb[i]), __fmul_rn(a[i], sb[i]));
+      a[i] = round_bf16(ra);
+      b[i] = round_bf16(rb);
     }
   }
 
   if (kind == 0) {
-    if (act) {
-      q_out[base + i] = __float2bfloat16_rn(a);
-      q_out[base + i + half] = __float2bfloat16_rn(b);
-    }
-    return;  // kind is uniform over the block: no thread is left at a barrier
+    __nv_bfloat16* out = q_out + ((size_t)row * Hq + h) * D;
+    store_bf16<V>(out + e, a);
+    store_bf16<V>(out + kHalf + e, b);
+    return;
   }
 
-  if (quantize) {
-    const float amax = block_reduce<true>(act ? fmaxf(fabsf(a), fabsf(b)) : 0.f, red);
-    const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-    int8_t* out = static_cast<int8_t*>(kind == 1 ? k_out : v_out);
-    if (act) {
-      const float qa = fminf(fmaxf(rintf(__fdiv_rn(a, scale)), -127.f), 127.f);
-      const float qb = fminf(fmaxf(rintf(__fdiv_rn(b, scale)), -127.f), 127.f);
-      out[base + i] = (int8_t)qa;
-      out[base + i + half] = (int8_t)qb;
+  // the cache row: dynamic_update_slice's rule for the window's start (the
+  // wrapper checks T <= L)
+  const int start = min(max(end < 0 ? end + L : end, 0), L - T);
+  const size_t crow = ((size_t)smp * NL + layer) * L + start + (row - smp * T);
+  const size_t dst = (crow * Hkv + h) * D;
+  if (k_scale != nullptr) {
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) m = fmaxf(m, fmaxf(fabsf(a[i]), fabsf(b[i])));
+    const float scale = fmaxf(__fmul_rn(warp_reduce<true>(m), kInv127), 1e-8f);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      a[i] = fminf(fmaxf(rintf(__fdiv_rn(a[i], scale)), -127.f), 127.f);
+      b[i] = fminf(fmaxf(rintf(__fdiv_rn(b[i], scale)), -127.f), 127.f);
     }
-    if (i == 0) {
-      __nv_bfloat16* so = kind == 1 ? ks_out : vs_out;
-      so[(size_t)row * Hkv + h] = __float2bfloat16_rn(scale);
-    }
-  } else if (act) {
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(kind == 1 ? k_out : v_out);
-    out[base + i] = __float2bfloat16_rn(a);
-    out[base + i + half] = __float2bfloat16_rn(b);
+    int8_t* out = static_cast<int8_t*>(kind == 1 ? k_cache : v_cache) + dst;
+    store_i8<V>(out + e, a);
+    store_i8<V>(out + kHalf + e, b);
+    if (lane == 0) (kind == 1 ? k_scale : v_scale)[crow * Hkv + h] = __float2bfloat16_rn(scale);
+  } else {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(kind == 1 ? k_cache : v_cache) + dst;
+    store_bf16<V>(out + e, a);
+    store_bf16<V>(out + kHalf + e, b);
   }
 }
 
 }  // namespace
 
+// k_scale == v_scale == null selects a bf16 cache, else an int8 one. The
+// launch goes to `device` (the tensors' card) on `stream`; the thread's
+// current device is restored afterwards. Returns a CUDA error code.
 extern "C" int sjd_fused_epilogue(
     const void* qp, const void* kp, const void* vp,
     const void* qns, const void* qnb, const void* kns, const void* knb,
-    const void* cos_t, const void* sin_t,
-    void* q_out, void* k_out, void* v_out, void* ks_out, void* vs_out,
-    int S, int T, int Hq, int Hkv, int D, int qk_norm, int quantize, float eps,
-    void* stream) {
-  const int threads = ((D / 2 + 31) / 32) * 32;
-  const dim3 grid(S * T, Hq + 2 * Hkv);
-  epilogue_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qp), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const __nv_bfloat16*>(qns),
-      static_cast<const __nv_bfloat16*>(qnb), static_cast<const __nv_bfloat16*>(kns),
-      static_cast<const __nv_bfloat16*>(knb), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(q_out), k_out, v_out,
-      static_cast<__nv_bfloat16*>(ks_out), static_cast<__nv_bfloat16*>(vs_out),
-      Hq, Hkv, D, qk_norm, quantize, eps);
-  return (int)cudaGetLastError();
+    const void* cos_t, const void* sin_t, const void* cache_end,
+    void* q_out, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+    int S, int T, int Hq, int Hkv, int D, int NL, int L, int layer,
+    int qk_norm, float eps, int device, void* stream) {
+  int current = device;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  const dim3 grid((Hq + 2 * Hkv + kWarps - 1) / kWarps, S * T);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SJD_EPILOGUE_ARGS                                                              \
+  static_cast<const __nv_bfloat16*>(qp), static_cast<const __nv_bfloat16*>(kp),        \
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const __nv_bfloat16*>(qns),   \
+      static_cast<const __nv_bfloat16*>(qnb), static_cast<const __nv_bfloat16*>(kns),  \
+      static_cast<const __nv_bfloat16*>(knb), static_cast<const float*>(cos_t),        \
+      static_cast<const float*>(sin_t), static_cast<const int*>(cache_end),            \
+      static_cast<__nv_bfloat16*>(q_out), k_cache, v_cache,                            \
+      static_cast<__nv_bfloat16*>(k_scale), static_cast<__nv_bfloat16*>(v_scale), T,   \
+      Hq, Hkv, NL, L, layer, qk_norm, eps
+  if (D == 128) {
+    epilogue_kernel<2><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
+    err = cudaGetLastError();
+  } else if (D == 64) {
+    epilogue_kernel<1><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
+    err = cudaGetLastError();
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+#undef SJD_EPILOGUE_ARGS
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
 }

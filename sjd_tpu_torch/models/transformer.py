@@ -7,7 +7,8 @@ Layout and semantics follow the JAX module:
     (torch's weight layout, so ``F.linear`` takes them as they are);
   * the KV cache is sample-major ``[S, NL, L_buf, Hkv, D]``, int8 with
     per-(row, head) bf16 scales when ``kv_quant``; a window is written in
-    place at each sample's ``cache_end`` and rejected rows are simply
+    place at each sample's ``cache_end`` (clamped to ``[0, L_buf - T]``, as
+    ``dynamic_update_slice`` clamps) and rejected rows are simply
     overwritten by the next window (no rollback);
   * a window is attended after its K/V rows are written.
 
@@ -15,8 +16,10 @@ Layout and semantics follow the JAX module:
 updates the cache in place (the JAX version returns a new one). On CUDA
 tensors with ``T <= 32`` (decode windows, and prompts that short) the
 layer's epilogue and attention go through the hand-written kernels of
-``sjd_tpu_torch/ops``; everything else takes the plain chain below, as the
-JAX package's prefill takes XLA code. The projections stay ``F.linear``.
+``sjd_tpu_torch/ops``, and the epilogue kernel writes the window's K/V rows
+into the cache itself; everything else takes the plain chain below and
+``write_kv_layer``, as the JAX package's prefill takes XLA code. The
+projections stay ``F.linear``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.decode_attention import NEG_INF, decode_attention, decode_masks
-from ..ops.fused_epilogue import fused_epilogue, quantize_rows
+from ..ops.fused_epilogue import fused_epilogue_into_cache, quantize_rows, write_kv_layer
 
 Tensor = torch.Tensor
 Params = Dict[str, object]
@@ -233,17 +236,6 @@ def head_layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tenso
     return (xn * scale.float() + bias.float()).to(x.dtype)
 
 
-def write_kv_layer(buf: Tensor, new: Tensor, layer: int, offsets: Tensor) -> Tensor:
-    """Write a window ``new`` [S, T, H(, D)] into layer ``layer`` of the
-    stacked buffer [S, NL, L_buf, H(, D)] at per-sample row ``offsets``, in
-    place. The engine sizes the buffer so that every write is in bounds."""
-    S, T = new.shape[:2]
-    rows = offsets.long()[:, None] + torch.arange(T, device=buf.device)[None, :]
-    samples = torch.arange(S, device=buf.device)[:, None]
-    buf[:, layer][samples, rows] = new
-    return buf
-
-
 def _attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     """Masked MHA/GQA attention, f32 scores. q [S,T,H,D], k/v [S,L,Hkv,D],
     mask [S,T,L]."""
@@ -306,36 +298,34 @@ def forward(
     def attn_block(x, p, i):
         qp, kp, vp = linear_multi(x, (p["wq"], p["wk"], p["wv"]))
         if use_kernels:
-            q, k, v, kscale, vscale = fused_epilogue(
+            # the kernel writes the window's K/V rows into the cache itself
+            q = fused_epilogue_into_cache(
                 qp, kp, vp,
                 p.get("q_norm_scale"), p.get("q_norm_bias"),
                 p.get("k_norm_scale"), p.get("k_norm_bias"),
-                cos, sin, num_heads=H, num_kv_heads=Hkv, head_dim=D,
-                qk_norm=cfg.qk_norm, quantize=cfg.kv_quant, eps=cfg.qk_norm_eps,
+                cos, sin, kv.k, kv.v, kv.k_scale, kv.v_scale, cache_end, layer=i,
+                num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=cfg.qk_norm,
+                eps=cfg.qk_norm_eps,
             )
-        else:
-            q = qp.reshape(S, T, H, D)
-            k = kp.reshape(S, T, Hkv, D)
-            v = vp.reshape(S, T, Hkv, D)
-            if cfg.qk_norm:
-                q = head_layer_norm(q, p["q_norm_scale"], p["q_norm_bias"],
-                                    cfg.qk_norm_eps)
-                k = head_layer_norm(k, p["k_norm_scale"], p["k_norm_bias"],
-                                    cfg.qk_norm_eps)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-            if cfg.kv_quant:
-                k, kscale = _quantize_rows(k)
-                v, vscale = _quantize_rows(v)
+            out = decode_attention(q, kv.k, kv.v, kv.k_scale, kv.v_scale,
+                                   cache_end, valid, window=T, layer=i)
+            return linear(out.reshape(S, T, cfg.q_dim), p["wo"])
+        q = qp.reshape(S, T, H, D)
+        k = kp.reshape(S, T, Hkv, D)
+        v = vp.reshape(S, T, Hkv, D)
+        if cfg.qk_norm:
+            q = head_layer_norm(q, p["q_norm_scale"], p["q_norm_bias"], cfg.qk_norm_eps)
+            k = head_layer_norm(k, p["k_norm_scale"], p["k_norm_bias"], cfg.qk_norm_eps)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if cfg.kv_quant:
+            k, kscale = _quantize_rows(k)
+            v, vscale = _quantize_rows(v)
         write_kv_layer(kv.k, k, i, cache_end)
         write_kv_layer(kv.v, v, i, cache_end)
         if cfg.kv_quant:
             write_kv_layer(kv.k_scale, kscale, i, cache_end)
             write_kv_layer(kv.v_scale, vscale, i, cache_end)
-        if use_kernels:
-            out = decode_attention(q, kv.k, kv.v, kv.k_scale, kv.v_scale,
-                                   cache_end, valid, window=T, layer=i)
-        elif cfg.kv_quant:
             out = _attend_quantized(q, kv.k[:, i], kv.v[:, i], kv.k_scale[:, i],
                                     kv.v_scale[:, i], mask)
         else:

@@ -1,11 +1,18 @@
-"""Fused per-layer attention epilogue: qk-norm + RoPE + int8 KV quantization.
+"""Fused per-layer attention epilogue: qk-norm + RoPE + int8 KV quantization,
+with K, V and their scales written into the stacked KV cache.
 
-The counterpart of ``sjd_tpu/ops/fused_epilogue.py``. On a CUDA tensor,
-:func:`fused_epilogue` launches the hand-written Hopper kernel
+The counterpart of ``sjd_tpu/ops/fused_epilogue.py`` followed by
+``sjd_tpu/models/transformer.py``'s ``write_kv_layer``. On CUDA tensors,
+:func:`fused_epilogue_into_cache` launches the hand-written Hopper kernel
 ``csrc/fused_epilogue.cu`` (which replaces the TPU kernel
-``_epilogue_kernel``); on a CPU tensor it runs :func:`fused_epilogue_plain`,
-the same arithmetic in plain PyTorch. There is no fallback from one to the
-other: a CUDA tensor the kernel does not take raises.
+``_epilogue_kernel``); on CPU tensors it runs
+:func:`fused_epilogue_into_cache_plain`, the same function in plain PyTorch
+(:func:`fused_epilogue_plain`, then :func:`write_kv_layer`). There is no
+fallback from one to the other: CUDA tensors the kernel does not take raise.
+
+:func:`fused_epilogue` keeps the JAX package's signature and returns
+``(q, k, v, k_scale, v_scale)``; on CUDA it goes through the same kernel,
+into a one-layer cache of T rows.
 
 What bounds the kernel on the H100, and what its design does about it, is
 written at the top of the CUDA source.
@@ -14,27 +21,63 @@ written at the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from ._build import load, ptr
+from ._build import load
 
 Tensor = torch.Tensor
-_MAX_HEAD_DIM = 256
+_KERNEL_HEAD_DIMS = (64, 128)
+_INV127 = (torch.tensor(1.0) / torch.tensor(127.0)).item()  # f32 1/127, exactly
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, typed once when the library is loaded
+    (not on every call: the caller's host path is the bottleneck)."""
+    fn = load("fused_epilogue").sjd_fused_epilogue
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn
 
 
 def quantize_rows(x: Tensor) -> Tuple[Tensor, Tensor]:
     """Symmetric int8 per-(row, head) quantization over the last axis:
-    scale = max(amax / 127, 1e-8), codes round half to even, clipped to
-    +-127; the scale is returned as bf16 (transformer._quantize_rows)."""
+    scale = max(amax * fl32(1/127), 1e-8), codes round half to even,
+    clipped to +-127; the scale is returned as bf16
+    (transformer._quantize_rows)."""
     xf = x.float()
-    # a 0-d tensor on x's device, not a Python number: CUDA turns division
-    # by a host scalar into a multiply by its reciprocal, which is not exact
-    d127 = torch.full((), 127.0, device=x.device)
-    scale = torch.clamp_min(xf.abs().amax(-1) / d127, 1e-8)
+    # XLA, which runs the reference, folds amax / 127 into a multiply by the
+    # f32 reciprocal of 127 (a tie x / scale = n + 0.5 can round the other
+    # way with the exact quotient); the kernel multiplies by it too
+    inv127 = torch.full((), _INV127, dtype=torch.float32, device=x.device)
+    scale = torch.clamp_min(xf.abs().amax(-1) * inv127, 1e-8)
     xq = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return xq.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def write_kv_layer(buf: Tensor, new: Tensor, layer: int, offsets: Tensor) -> Tensor:
+    """Write a window ``new`` [S, T, H(, D)] into layer ``layer`` of the
+    stacked buffer [S, NL, L_buf, H(, D)] at per-sample rows ``offsets``, in
+    place. Start rows follow ``jax.lax.dynamic_update_slice`` (the JAX
+    package's write_kv_layer): a negative one counts from the end (+ L_buf),
+    then each is clamped to [0, L_buf - T], so a window never writes past
+    the buffer."""
+    write_kv_layer.calls += 1
+    S, T = new.shape[:2]
+    L = buf.shape[2]
+    start = offsets.long()
+    start = torch.where(start < 0, start + L, start).clamp(0, L - T)
+    rows = start[:, None] + torch.arange(T, device=buf.device)[None, :]
+    samples = torch.arange(S, device=buf.device)[:, None]
+    buf[:, layer][samples, rows] = new
+    return buf
+
+
+write_kv_layer.calls = 0  # the kernel path of transformer.forward makes none
 
 
 def fused_epilogue_plain(
@@ -45,8 +88,8 @@ def fused_epilogue_plain(
     *, num_heads: int, num_kv_heads: int, head_dim: int, qk_norm: bool,
     quantize: bool, eps: float = 1e-5,
 ) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
-    """The kernel's function in PyTorch, with the TPU kernel's cast points:
-    the norm output and the RoPE output each round to the compute dtype."""
+    """The epilogue in PyTorch, with the TPU kernel's cast points: the norm
+    output and the RoPE output each round to the compute dtype."""
     S, T = qp.shape[:2]
     dt = qp.dtype
     cos = cos.float()[:, :, None, :]
@@ -80,6 +123,125 @@ def fused_epilogue_plain(
     return q, kq, vq, ks, vs
 
 
+def fused_epilogue_into_cache_plain(
+    qp: Tensor, kp: Tensor, vp: Tensor,
+    q_norm_scale: Optional[Tensor], q_norm_bias: Optional[Tensor],
+    k_norm_scale: Optional[Tensor], k_norm_bias: Optional[Tensor],
+    cos: Tensor, sin: Tensor,
+    k_cache: Tensor, v_cache: Tensor,
+    k_scale: Optional[Tensor], v_scale: Optional[Tensor],
+    cache_end: Tensor,
+    *, layer: int, num_heads: int, num_kv_heads: int, head_dim: int,
+    qk_norm: bool, eps: float = 1e-5,
+) -> Tensor:
+    """The kernel's function in PyTorch: the epilogue, then the window's
+    K, V (and scales) written into the cache by :func:`write_kv_layer`."""
+    q, k, v, ks, vs = fused_epilogue_plain(
+        qp, kp, vp, q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias, cos, sin,
+        num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
+        qk_norm=qk_norm, quantize=k_scale is not None, eps=eps)
+    write_kv_layer(k_cache, k, layer, cache_end)
+    write_kv_layer(v_cache, v, layer, cache_end)
+    if k_scale is not None:
+        write_kv_layer(k_scale, ks, layer, cache_end)
+        write_kv_layer(v_scale, vs, layer, cache_end)
+    return q
+
+
+def fused_epilogue_into_cache(
+    qp: Tensor,  # [S, T, Hq*D]
+    kp: Tensor,  # [S, T, Hkv*D]
+    vp: Tensor,  # [S, T, Hkv*D]
+    q_norm_scale: Optional[Tensor],  # [Hq, D]
+    q_norm_bias: Optional[Tensor],
+    k_norm_scale: Optional[Tensor],  # [Hkv, D]
+    k_norm_bias: Optional[Tensor],
+    cos: Tensor,  # [S, T, D] float32
+    sin: Tensor,
+    k_cache: Tensor,  # [S, NL, L, Hkv, D] int8 (with scales) or bf16
+    v_cache: Tensor,
+    k_scale: Optional[Tensor],  # [S, NL, L, Hkv] bf16, or None (bf16 cache)
+    v_scale: Optional[Tensor],
+    cache_end: Tensor,  # [S] int32
+    *,
+    layer: int,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    qk_norm: bool,
+    eps: float = 1e-5,
+) -> Tensor:
+    """Returns q [S, T, Hq, D]. K and V (int8 codes and bf16 scales when
+    ``k_scale`` is given) go into layer ``layer`` of the caches, in place,
+    at the rows :func:`write_kv_layer` picks (dynamic_update_slice's rule:
+    a negative ``cache_end`` counts from the end, then the start is clamped
+    to [0, L - T]); no other row changes."""
+    if not qp.is_cuda:
+        return fused_epilogue_into_cache_plain(
+            qp, kp, vp, q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias, cos, sin,
+            k_cache, v_cache, k_scale, v_scale, cache_end, layer=layer,
+            num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
+            qk_norm=qk_norm, eps=eps)
+
+    S, T = qp.shape[:2]
+    Hq, Hkv, D = num_heads, num_kv_heads, head_dim
+    dev = qp.get_device()
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"fused_epilogue kernel takes head_dim in {_KERNEL_HEAD_DIMS}, "
+                         f"got {D}")
+    bf16 = torch.bfloat16
+    cshape = k_cache.shape
+    NL, L = (cshape[1], cshape[2]) if k_cache.dim() == 5 else (0, 0)
+    quantize = k_scale is not None
+    expect = [
+        (qp, (S, T, Hq * D), bf16), (kp, (S, T, Hkv * D), bf16), (vp, (S, T, Hkv * D), bf16),
+        (cos, (S, T, D), torch.float32), (sin, (S, T, D), torch.float32),
+        (cache_end, (S,), torch.int32),
+        (k_cache, (S, NL, L, Hkv, D), torch.int8 if quantize else bf16),
+        (v_cache, (S, NL, L, Hkv, D), k_cache.dtype),
+    ]
+    if quantize:
+        expect += [(k_scale, (S, NL, L, Hkv), bf16), (v_scale, (S, NL, L, Hkv), bf16)]
+    elif v_scale is not None:
+        raise ValueError("fused_epilogue: k_scale and v_scale go together")
+    norms = (q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias)
+    if qk_norm:
+        expect += [(t, (H, D), bf16) for t, H in zip(norms, (Hq, Hq, Hkv, Hkv))]
+    else:
+        norms = (None,) * 4
+    for t, shape, dtype in expect:
+        # (torch.Size == tuple is several times faster than !=)
+        if t is None or t.dtype != dtype or not t.shape == shape or t.get_device() != dev \
+                or not t.is_contiguous():
+            got = None if t is None else (tuple(t.shape), t.dtype, t.device,
+                                          t.is_contiguous())
+            raise ValueError(f"fused_epilogue: expected a contiguous {dtype} tensor "
+                             f"{shape} on cuda:{dev}, got {got}")
+    if not (0 <= layer < NL and 0 < T <= L):
+        raise ValueError(f"fused_epilogue: need 0 <= layer < NL and 0 < T <= L; got "
+                         f"layer={layer}, NL={NL}, T={T}, L={L}")
+    ptrs = [t.data_ptr() if t is not None else None for t in (
+        qp, kp, vp, *norms, cos, sin, cache_end)]
+    q = qp.new_empty((S, T, Hq, D))
+    outs = [t.data_ptr() if t is not None else None for t in (
+        q, k_cache, v_cache, k_scale, v_scale)]
+    # bf16 pairs, float2 and int8 pairs move as whole words
+    if any(p % 8 for p in ptrs + outs if p):
+        raise ValueError("fused_epilogue: every tensor must be 8-byte aligned")
+    # the current stream's handle, as torch.cuda.current_stream(dev).cuda_stream
+    # gives it, without building a Stream object (a tenth of the host time)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    rc = _entry()(*ptrs, *outs, S, T, Hq, Hkv, D, NL, L, layer, int(qk_norm), eps, dev,
+                  stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_epilogue kernel launch failed: CUDA error {rc}")
+    fused_epilogue_into_cache.launches += 1
+    return q
+
+
+fused_epilogue_into_cache.launches = 0
+
+
 def fused_epilogue(
     qp: Tensor,  # [S, T, Hq*D]
     kp: Tensor,  # [S, T, Hkv*D]
@@ -98,62 +260,28 @@ def fused_epilogue(
     quantize: bool,
     eps: float = 1e-5,
 ) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor], Optional[Tensor]]:
-    """Returns (q [S,T,Hq,D], k, v [S,T,Hkv,D] int8 if ``quantize`` else the
-    compute dtype, k_scale, v_scale [S,T,Hkv] bf16 or None)."""
+    """The JAX package's signature. Returns (q [S,T,Hq,D], k, v [S,T,Hkv,D]
+    int8 if ``quantize`` else the compute dtype, k_scale, v_scale [S,T,Hkv]
+    bf16 or None). On CUDA, the kernel writes K and V into a one-layer,
+    T-row cache with ``cache_end = 0``, whose rows are returned."""
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
-              head_dim=head_dim, qk_norm=qk_norm, quantize=quantize, eps=eps)
+              head_dim=head_dim, qk_norm=qk_norm, eps=eps)
     if not qp.is_cuda:
         return fused_epilogue_plain(
             qp, kp, vp, q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias,
-            cos, sin, **kw)
-
+            cos, sin, quantize=quantize, **kw)
     S, T = qp.shape[:2]
-    Hq, Hkv, D = num_heads, num_kv_heads, head_dim
-    if D % 2 or not 2 <= D <= _MAX_HEAD_DIM:
-        raise ValueError(f"fused_epilogue kernel takes an even head_dim <= "
-                         f"{_MAX_HEAD_DIM}, got {D}")
-    norms = (q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias)
-    expect = [
-        (qp, (S, T, Hq * D), torch.bfloat16), (kp, (S, T, Hkv * D), torch.bfloat16),
-        (vp, (S, T, Hkv * D), torch.bfloat16), (cos, (S, T, D), torch.float32),
-        (sin, (S, T, D), torch.float32),
-    ]
-    if qk_norm:
-        expect += [(t, (H, D), torch.bfloat16)
-                   for t, H in zip(norms, (Hq, Hq, Hkv, Hkv))]
-    for t, shape, dtype in expect:
-        if t is None or t.device != qp.device or tuple(t.shape) != shape \
-                or t.dtype != dtype or not t.is_contiguous():
-            got = None if t is None else (tuple(t.shape), t.dtype, t.device,
-                                          t.is_contiguous())
-            raise ValueError(f"fused_epilogue: expected a contiguous {dtype} "
-                             f"tensor {shape} on {qp.device}, got {got}")
-
-    kv_dt = torch.int8 if quantize else torch.bfloat16
-    q = torch.empty((S, T, Hq, D), dtype=torch.bfloat16, device=qp.device)
-    k = torch.empty((S, T, Hkv, D), dtype=kv_dt, device=qp.device)
-    v = torch.empty((S, T, Hkv, D), dtype=kv_dt, device=qp.device)
+    shape = (S, 1, T, num_kv_heads, head_dim)
+    k = torch.empty(shape, dtype=torch.int8 if quantize else torch.bfloat16,
+                    device=qp.device)
+    v = torch.empty_like(k)
     ks = vs = None
     if quantize:
-        ks = torch.empty((S, T, Hkv), dtype=torch.bfloat16, device=qp.device)
-        vs = torch.empty((S, T, Hkv), dtype=torch.bfloat16, device=qp.device)
-    norm_args = norms if qk_norm else (None,) * 4
-
-    lib = load("fused_epilogue")
-    fn = lib.sjd_fused_epilogue
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(qp.device):
-        stream = torch.cuda.current_stream(qp.device).cuda_stream
-        rc = fn(ptr(qp), ptr(kp), ptr(vp), *[ptr(t) for t in norm_args],
-                ptr(cos), ptr(sin), ptr(q), ptr(k), ptr(v), ptr(ks), ptr(vs),
-                S, T, Hq, Hkv, D, int(qk_norm), int(quantize), eps,
-                ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"fused_epilogue kernel launch failed: CUDA error {rc}")
-    fused_epilogue.launches += 1
-    return q, k, v, ks, vs
-
-
-fused_epilogue.launches = 0
+        ks = torch.empty(shape[:-1], dtype=torch.bfloat16, device=qp.device)
+        vs = torch.empty_like(ks)
+    zero = torch.zeros((S,), dtype=torch.int32, device=qp.device)
+    q = fused_epilogue_into_cache(
+        qp, kp, vp, q_norm_scale, q_norm_bias, k_norm_scale, k_norm_bias, cos, sin,
+        k, v, ks, vs, zero, layer=0, **kw)
+    return (q, k[:, 0], v[:, 0], None if ks is None else ks[:, 0],
+            None if vs is None else vs[:, 0])

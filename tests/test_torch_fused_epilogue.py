@@ -78,3 +78,45 @@ def test_plain_epilogue_bit_matches_pallas_bf16():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(w, np.float32 if g.dtype
                                                           == torch.bfloat16 else None))
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8_cache", "bf16_cache"])
+@pytest.mark.parametrize("qk_norm", [True, False], ids=["qk_norm", "no_norm"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_into_cache_plain_matches_pallas_then_write_kv_layer(quantize, qk_norm, D):
+    """The cache-writing entry on the CPU (its plain version) against the
+    Pallas kernel in interpret mode followed by the JAX package's
+    write_kv_layer, into sentinel-filled stacked caches, GQA (Hq != Hkv).
+    Sample 1's cache_end overruns L - T, so its window lands clamped at the
+    buffer's end. q and the whole caches are bit-equal."""
+    from sjd_tpu.models.transformer import write_kv_layer as jax_write_kv_layer
+    from sjd_tpu_torch.ops.fused_epilogue import fused_epilogue_into_cache
+
+    S, T, H, Hkv, NL, L, layer = 2, 4, 4, 2, 3, 12, 1
+    ends = np.array([3, L - T + 2], np.int32)
+    jx, tx = _inputs(11, S, T, H, Hkv, D, jnp.bfloat16)
+    kv_np = np.int8 if quantize else np.float32
+    sentinel = np.full((S, NL, L, Hkv, D), -128 if quantize else -3.0, kv_np)
+    caches = [sentinel, sentinel]
+    if quantize:
+        caches += [np.full((S, NL, L, Hkv), -1.0, np.float32)] * 2
+    jdt = lambda a: jnp.asarray(a, jnp.int8 if a.dtype == np.int8 else jnp.bfloat16)  # noqa: E731
+    tdt = lambda a: torch.from_numpy(a.copy()).to(  # noqa: E731
+        torch.int8 if a.dtype == np.int8 else torch.bfloat16)
+    tcaches = [tdt(c) for c in caches]
+    names = ("qns", "qnb", "kns", "knb")
+    kw = dict(num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=qk_norm)
+
+    q = fused_epilogue_into_cache(
+        tx["qp"], tx["kp"], tx["vp"], *[tx[n] if qk_norm else None for n in names],
+        tx["cos"], tx["sin"], *tcaches, *([None, None] if not quantize else []),
+        torch.from_numpy(ends), layer=layer, **kw)
+    want = jax_fused_epilogue(
+        jx["qp"], jx["kp"], jx["vp"], *[jx[n] if qk_norm else None for n in names],
+        jx["cos"], jx["sin"], quantize=quantize, interpret=True, **kw)
+    np.testing.assert_array_equal(_np(q), np.asarray(want[0], np.float32))
+    for cache, new, got in zip(caches, want[1:], tcaches):
+        ref = jax_write_kv_layer(jdt(cache), new, jnp.int32(layer), jnp.asarray(ends))
+        np.testing.assert_array_equal(_np(got), np.asarray(ref, got.numpy().dtype
+                                                          if got.dtype == torch.int8
+                                                          else np.float32))

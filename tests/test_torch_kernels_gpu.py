@@ -14,7 +14,9 @@ import torch
 
 from sjd_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_plain, partials_numel)
-from sjd_tpu_torch.ops.fused_epilogue import fused_epilogue, fused_epilogue_plain, quantize_rows
+from sjd_tpu_torch.ops.fused_epilogue import (
+    fused_epilogue, fused_epilogue_into_cache, fused_epilogue_into_cache_plain,
+    fused_epilogue_plain, quantize_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,23 +34,31 @@ def _bf16_close(got, want):
     assert err <= bound, (err, bound)
 
 
-@pytest.mark.parametrize("qk_norm,quantize", [(True, True), (False, True), (True, False)])
-def test_epilogue_kernel_matches_plain(cuda, qk_norm, quantize):
-    S, T, H, Hkv, D = 2, 16, 32, 32, 128
+def _epilogue_inputs(cuda, S, T, H, Hkv, D, qk_norm):
+    """bf16 projections, the four qk-norm tensors (None when off) and f32
+    cos/sin, from a seed."""
     g = torch.Generator(device=cuda).manual_seed(0)
     r = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
     qp, kp, vp = (r(S, T, n * D).to(torch.bfloat16) for n in (H, Hkv, Hkv))
     norms = [(1 + 0.1 * r(n, D)).to(torch.bfloat16) if i % 2 == 0 else
              (0.1 * r(n, D)).to(torch.bfloat16) for i, n in enumerate((H, H, Hkv, Hkv))]
     ang = 3 * torch.rand((S, T, D), generator=g, device=cuda)
-    args = (qp, kp, vp, *norms, ang.cos(), ang.sin())
+    return (qp, kp, vp, *(norms if qk_norm else [None] * 4), ang.cos(), ang.sin())
+
+
+@pytest.mark.parametrize("qk_norm,quantize", [(True, True), (False, True), (True, False)])
+def test_epilogue_kernel_matches_plain(cuda, qk_norm, quantize):
+    """The JAX-shaped fused_epilogue, which goes through the cache-writing
+    kernel into a one-layer scratch cache."""
+    S, T, H, Hkv, D = 2, 16, 32, 32, 128
+    args = _epilogue_inputs(cuda, S, T, H, Hkv, D, True)
     kw = dict(num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=qk_norm,
               quantize=quantize)
-    before = fused_epilogue.launches
+    before = fused_epilogue_into_cache.launches
     got = fused_epilogue(*args, **kw)
     want = fused_epilogue_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_epilogue.launches == before + 1
+    assert fused_epilogue_into_cache.launches == before + 1
     _bf16_close(got[0], want[0])
     if quantize:
         for a, b in zip(got[1:3], want[1:3]):
@@ -58,6 +68,65 @@ def test_epilogue_kernel_matches_plain(cuda, qk_norm, quantize):
     else:
         for a, b in zip(got[1:3], want[1:3]):
             _bf16_close(a, b)
+
+
+# (S, T, Hq, Hkv, D, NL, L, layer), cache_end per sample
+EPILOGUE_CASES = {
+    "main": ((2, 16, 32, 32, 128, 3, 2560, 1), (1200, 37)),  # main-path heads
+    "gqa128": ((2, 16, 32, 8, 128, 2, 512, 1), (100, 301)),  # Emu3's 32/8 heads
+    "gqa64": ((2, 16, 16, 4, 64, 2, 300, 0), (7, 250)),  # LlamaGen's head width, GQA
+    # past L - T, and negative (counts from the end): both clamp to L - T
+    "clamped": ((2, 16, 32, 32, 128, 2, 256, 1), (250, -3)),
+    "prefill15": ((2, 15, 32, 32, 128, 2, 256, 0), (0, 0)),  # the 15-token prompt
+}
+
+
+def _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize):
+    """k, v, k_scale, v_scale filled with values the kernel never writes."""
+    if quantize:
+        k = torch.full((S, NL, L, Hkv, D), -128, dtype=torch.int8, device=cuda)
+        ks = torch.full((S, NL, L, Hkv), -1.0, dtype=torch.bfloat16, device=cuda)
+        return [k, k.clone(), ks, ks.clone()]
+    k = torch.full((S, NL, L, Hkv, D), -3.0, dtype=torch.bfloat16, device=cuda)
+    return [k, k.clone(), None, None]
+
+
+@pytest.mark.parametrize("qk_norm", [True, False], ids=["qk_norm", "no_norm"])
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("case", list(EPILOGUE_CASES))
+def test_epilogue_into_cache_matches_plain(cuda, case, quantize, qk_norm):
+    """The cache-writing kernel against its plain version (the epilogue, then
+    write_kv_layer): q, the window rows of the caches, and every other row
+    left bit-unchanged."""
+    (S, T, H, Hkv, D, NL, L, layer), ends = EPILOGUE_CASES[case]
+    args = _epilogue_inputs(cuda, S, T, H, Hkv, D, qk_norm)
+    cache_end = torch.tensor(ends, dtype=torch.int32, device=cuda)
+    got_c = _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize)
+    want_c = _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize)
+    sentinel = [None if c is None else c.clone() for c in got_c]
+    kw = dict(layer=layer, num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=qk_norm)
+    before = fused_epilogue_into_cache.launches
+    q = fused_epilogue_into_cache(*args, *got_c, cache_end, **kw)
+    q_want = fused_epilogue_into_cache_plain(*args, *want_c, cache_end, **kw)
+    torch.cuda.synchronize()
+    assert fused_epilogue_into_cache.launches == before + 1
+    _bf16_close(q, q_want)
+    starts = [min(max(e + L if e < 0 else e, 0), L - T) for e in ends]
+    for got, want, sent in zip(got_c, want_c, sentinel):
+        if got is None:
+            continue
+        win = [(s, layer, slice(st, st + T)) for s, st in enumerate(starts)]
+        g = torch.stack([got[i] for i in win])
+        w = torch.stack([want[i] for i in win])
+        if got.dtype == torch.int8:
+            assert (g.int() - w.int()).abs().max().item() <= 1
+        elif got.dim() == 4:  # scales
+            torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -7, atol=0)
+        else:
+            _bf16_close(g, w)
+        for i in win:
+            got[i] = sent[i]
+        assert torch.equal(got, sent), "a row outside the window changed"
 
 
 # (S, W, H, Hkv, D, NL, L), cache_end per sample, masked leading rows per
@@ -122,6 +191,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # head_dim 8 is not compiled
         decode_attention(q[..., :8].to(torch.bfloat16).contiguous(), k[..., :8].contiguous(),
                          k[..., :8].contiguous(), None, None, ce, valid, window=4, layer=0)
+
+    def epilogue(D, proj_dtype=torch.bfloat16, layer=0, T=4):
+        qp = torch.zeros((1, T, 2 * D), dtype=proj_dtype, device=cuda)
+        cos = torch.zeros((1, T, D), dtype=torch.float32, device=cuda)
+        cache = torch.zeros((1, 1, 64, 2, D), dtype=torch.bfloat16, device=cuda)
+        return fused_epilogue_into_cache(
+            qp, qp, qp, None, None, None, None, cos, cos, cache, cache.clone(), None, None,
+            ce, layer=layer, num_heads=2, num_kv_heads=2, head_dim=D, qk_norm=False)
+
+    epilogue(128)  # the baseline call is taken
+    with pytest.raises(ValueError):  # head_dim 96 is not compiled
+        epilogue(96)
+    with pytest.raises(ValueError):  # f32 projections: the kernel is bf16
+        epilogue(128, torch.float32)
+    with pytest.raises(ValueError):  # the cache has one layer
+        epilogue(128, layer=1)
+    with pytest.raises(ValueError):  # a window longer than the cache
+        epilogue(128, T=65)
 
 
 def test_forward_kernel_path_matches_plain_path(cuda):

@@ -75,3 +75,21 @@ def test_forward_matches_jax_prefill_then_window(base, kv_quant):
         else:
             for g, w in zip(got[:2], want[:2]):
                 np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rank", [5, 4], ids=["kv_rows", "scales"])
+def test_write_kv_layer_clamps_as_dynamic_update_slice(rank):
+    """write_kv_layer against the JAX package's on a stacked [S, NL, L, H(, D)]
+    buffer, with per-sample offsets of which one overruns L - T and one is
+    negative: both clamp the start row into [0, L - T]; bit-equal buffers."""
+    S, NL, L, H, D, T, layer = 3, 3, 10, 2, 4, 4, 2
+    rng = np.random.default_rng(5)
+    shape = (S, NL, L, H, D)[:rank]
+    buf = rng.standard_normal(shape).astype(np.float32)
+    new = rng.standard_normal((S, T) + shape[3:]).astype(np.float32)
+    offsets = np.array([2, L - T + 3, -2], np.int32)
+    want = jt.write_kv_layer(jnp.asarray(buf), jnp.asarray(new), jnp.int32(layer),
+                             jnp.asarray(offsets))
+    got = pt.write_kv_layer(torch.from_numpy(buf.copy()), torch.from_numpy(new), layer,
+                            torch.from_numpy(offsets))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
