@@ -7,19 +7,40 @@ Phases, one line of output each (JSON where it carries numbers):
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
                versions;
   2. build   - nvcc builds every kernel of sjd_tpu_torch/csrc into build/;
-  3. kernels - each kernel against its plain PyTorch version at the main
-               path's shapes, on the card: max abs difference against the
-               stated tolerance, median time, the plain version's time, the
-               least time the card could take (bound), and a one-call
-               PyTorch yardstick where one exists;
+  3. kernels - each kernel against its plain PyTorch version at the shapes
+               of both paths that run it (generate: S = 2; serve: S = 4, a
+               left-padded prompt bucket, per-slot fills), on the card: max
+               abs difference against the stated tolerance, median time,
+               the plain version's time, the least time the card could
+               take (bound), and a one-call PyTorch yardstick where one
+               exists;
   4. forward - a 2-layer decoder with 128-wide heads through the kernels
                against the plain path (the check of the composed forward);
-  5. generate - Lumina-mGPT-7B at full width and depth (32 layers, d=4096,
+  5. load    - Lumina-mGPT-7B at full width and depth (32 layers, d=4096,
                vocab 65536; bf16 random weights from a seed, int8 KV cache)
-               generates one 768px image through load_lumina_mgpt(...)
-               .sample_fn: prefill, SJD decode loop (window 16, CFG 3.0,
-               speculative Jacobi) and VQ decode. The kernels' launch
-               counters are set to 0 just before and read just after.
+               through load_lumina_mgpt; the phases below share its weights;
+  6. graph   - 32 decode steps of the 7B at 768px run eagerly
+               (cuda_graph=False) and 32 replayed from the captured step,
+               from the same seed: tokens, lengths, accept_hist and every
+               byte of the KV cache must be equal; ms per forward of both;
+               each kernel's launches 32 per forward on both engines; then
+               two replays under torch.profiler, which must show each
+               kernel run 32 times per replay on the device;
+  7. generate - one 768px image through load_lumina_mgpt(...).sample_fn on
+               the graph path: prefill, SJD decode loop (window 16, CFG 3.0,
+               speculative Jacobi) and VQ decode;
+  8. serve   - ContinuousBatcher: 3 requests at 512px through 2 slots with
+               per-request seeds, chunks of 64 steps; each result decodes
+               to an image, a refill happens while a request is live, and
+               that request's tokens equal those of an eager run with the
+               same companion and no refill.
+
+Each of the paths 6-8 starts from kernel launch counts of 0 and reads them
+just after. A wrapper counts a launch when Python calls it, so a capture
+counts the launches it records and a replay none; the launches that ran
+are the counters minus the capture's records plus each replay's
+(GraphStats.executed, which phase 6's profile holds to the device's
+trace). They must be 32 per forward with T <= 32 for each kernel.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failed phase raises
@@ -133,15 +154,18 @@ def phase_build():
          dir=str(_build.BUILD_DIR), ptxas=usage)
 
 
-def phase_epilogue(dev):
+def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int):
+    """``fused_epilogue_into_cache`` against its plain version over a whole
+    32-layer int8 cache filled with sentinels, at ``S`` rows and per-row
+    fills ``ends``: the window's rows within tolerance, every other row
+    unchanged. Times both; returns the case's row."""
     import torch
 
     from sjd_tpu_torch.ops.fused_epilogue import (
         fused_epilogue_into_cache, fused_epilogue_into_cache_plain)
 
-    S, T, H, Hkv, D, NL, L, layer = 2, 16, 32, 32, 128, 32, 2560, 17
-    ends = (1200, 37)
-    g = torch.Generator(device=dev).manual_seed(0)
+    T, H, Hkv, D, NL, layer = 16, 32, 32, 128, 32, 17
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -179,6 +203,7 @@ def phase_epilogue(dev):
         for i in win:
             rest[i] = sent[i]
         untouched = untouched and torch.equal(rest, sent)
+        del rest
     # tolerance: one bf16 rounding of q at its largest magnitude, one int8
     # step for K/V codes, one bf16 rounding of the scales
     tol_q = 2 ** -7 * q_want.float().abs().max().item()
@@ -196,19 +221,39 @@ def phase_epilogue(dev):
     # per element: ~8 norm ops (q, k), 3 rope ops (q, k), ~4 quantize ops (k, v)
     n_ops = S * T * D * (11 * (H + Hkv) + 4 * 2 * Hkv)
     b_ms, b_by = bound_ms(n_in + n_out, n_ops, F32_FLOPS)
-    emit("kernel", name="fused_epilogue",
-         shape=dict(S=S, T=T, H=H, Hkv=Hkv, D=D, NL=NL, L=L, layer=layer, cache_end=ends),
-         max_abs_err=errs, tolerance=dict(q=tol_q, codes=1, scales=tol_s),
-         other_rows_unchanged=untouched, ok=ok, ms=ms, eager_ms=call_ms, plain_ms=plain_ms,
-         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms, bytes=n_in + n_out)
-    check(ok, "fused_epilogue disagrees with its plain version, or wrote outside "
-              "the window")
+    row = dict(name="fused_epilogue", case=case,
+               shape=dict(S=S, T=T, H=H, Hkv=Hkv, D=D, NL=NL, L=L, layer=layer,
+                          cache_end=list(ends)),
+               max_abs_err=errs, tolerance=dict(q=tol_q, codes=1, scales=tol_s),
+               other_rows_unchanged=untouched, ok=ok, ms=ms, eager_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+               bytes=n_in + n_out)
+    emit("kernel", **row)
+    check(ok, f"fused_epilogue ({case}) disagrees with its plain version, or wrote "
+              "outside the window")
+    del sentinel, caches
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_epilogue(dev):
+    """The epilogue at the shapes of both paths that run it: ``generate``
+    (one slot, CFG: S = 2) and ``serve`` (two slots: S = 4, a 2048-row
+    buffer, each slot at its own fill, cond and uncond halves alike)."""
+    main = _epilogue_case(dev, "generate", 2, 2560, (1200, 37), 0)
+    serve = _epilogue_case(dev, "serve", 4, 2048, (690, 1731, 690, 1731), 3)
     return dict(name="fused_epilogue", route="cuda", source="sjd_tpu_torch/csrc/fused_epilogue.cu",
-                replaces="sjd_tpu/ops/fused_epilogue.py:35", max_abs_err=max(errs.values()),
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                replaces="sjd_tpu/ops/fused_epilogue.py:35",
+                max_abs_err=max(max(r["max_abs_err"].values()) for r in (main, serve)),
+                ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None)
 
 
-def phase_attention(dev):
+def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: int):
+    """``decode_attention`` against its plain version on a 32-layer cache
+    of ``S`` rows and ``L`` rows each, under the mask ``valid``, for each
+    per-row fill in ``fills`` and each cache kind; times the kernel, the
+    plain version and SDPA on the same layer. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -216,27 +261,27 @@ def phase_attention(dev):
         _entry, decode_attention, decode_attention_plain, decode_masks)
     from sjd_tpu_torch.ops.fused_epilogue import quantize_rows
 
-    S, W, H, Hkv, D, NL, L = 2, 16, 32, 32, 128, 32, 2560
-    P, layer = 15, 17
-    g = torch.Generator(device=dev).manual_seed(1)
+    W, H, Hkv, D, NL, layer = 16, 32, 32, 128, 32, 17
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((S, W, H, D), generator=g, device=dev).to(torch.bfloat16)
-    caches = {}
     kq, ks = quantize_rows(torch.randn((S, NL, L, Hkv, D), generator=g, device=dev))
     vq, vs = quantize_rows(torch.randn((S, NL, L, Hkv, D), generator=g, device=dev))
-    caches["int8"] = (kq, vq, ks, vs)
-    kb = (kq[:, layer:layer + 1].float() * ks[:, layer:layer + 1, ..., None].float())
-    vb = (vq[:, layer:layer + 1].float() * vs[:, layer:layer + 1, ..., None].float())
-    # the bf16 cache: one live layer (the dequantized one) in a zero stack
-    kbf = torch.zeros((S, NL, L, Hkv, D), dtype=torch.bfloat16, device=dev)
-    vbf = torch.zeros_like(kbf)
-    kbf[:, layer], vbf[:, layer] = kb[:, 0].to(torch.bfloat16), vb[:, 0].to(torch.bfloat16)
-    caches["bf16"] = (kbf, vbf, None, None)
-    valid = torch.ones((S, L), dtype=torch.bool, device=dev)
-    valid[1, :P - 1] = False  # the CFG uncond half masks its prompt rows
-    results, worst = [], 0.0
-    for kind, (k, v, kscale, vscale) in caches.items():
-        for fill in (150, 1200, 2400, L - W):
-            cache_end = torch.full((S,), fill, dtype=torch.int32, device=dev)
+    # the attended layer dequantized: SDPA's operands, and the bf16 cache's
+    # one live layer (in a zero stack)
+    kd = (kq[:, layer].float() * ks[:, layer, ..., None].float()).to(torch.bfloat16)
+    vd = (vq[:, layer].float() * vs[:, layer, ..., None].float()).to(torch.bfloat16)
+    caches = {"int8": (kq, vq, ks, vs)}
+    if "bf16" in kinds:
+        kbf = torch.zeros((S, NL, L, Hkv, D), dtype=torch.bfloat16, device=dev)
+        vbf = torch.zeros_like(kbf)
+        kbf[:, layer], vbf[:, layer] = kd, vd
+        caches["bf16"] = (kbf, vbf, None, None)
+    split_rows = _entry()[1]
+    results = []
+    for kind in kinds:
+        k, v, kscale, vscale = caches[kind]
+        for ends in fills:
+            cache_end = torch.tensor(ends, dtype=torch.int32, device=dev)
             call = lambda: decode_attention(q, k, v, kscale, vscale, cache_end,  # noqa: E731
                                             valid, window=W, layer=layer)
             got = call()
@@ -248,45 +293,68 @@ def phase_attention(dev):
             # magnitude plus f32 reassociation
             tol = 2 ** -7 * want.float().abs().max().item() + 1e-3
             ok = bool(torch.isfinite(got.float()).all()) and err <= tol
-            worst = max(worst, err)
             ms = time_ms(call)
             call_ms = eager_ms(call)
             plain_ms = time_ms(lambda: decode_attention_plain(
                 q, k, v, kscale, vscale, cache_end, valid, layer=layer), reps=3, trials=5)
             # the yardstick: SDPA over the dequantized bf16 layer, same mask
-            qs = q.transpose(1, 2)
-            kd = kbf[:, layer].transpose(1, 2)
-            vd = vbf[:, layer].transpose(1, 2)
+            qs, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
             mask = decode_masks(cache_end, valid, W, L)[:, None]
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask))
-            rows = S * min(fill + W, L)
+                qs, kt, vt, attn_mask=mask))
+            live = [min(e + W, L) for e in ends]  # each row's attended cache rows
             kv_bytes = 1 if kind == "int8" else 2
-            n_bytes = (2 * rows * Hkv * D * kv_bytes + (2 * rows * Hkv * 2 if kscale is not None
-                                                       else 0)
+            n_bytes = (2 * sum(live) * Hkv * D * kv_bytes
+                       + (2 * sum(live) * Hkv * 2 if kscale is not None else 0)
                        + 2 * 2 * S * W * H * D + S * L + 4 * S)
-            n_ops = 4 * S * W * H * D * min(fill + W, L)
+            n_ops = 4 * W * H * D * sum(live)
             b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
             # the grid covers every split of the buffer; blocks of dead
             # splits return at once
-            split_rows = _entry()[1]
-            splits = math.ceil(L / split_rows)
-            live_blocks = math.ceil(W * H // Hkv / 16) * Hkv * S * math.ceil(
-                min(fill + W, L) / split_rows)
-            row = dict(name="decode_attention", cache=kind, fill=fill,
+            live_blocks = math.ceil(W * H // Hkv / 16) * Hkv * sum(
+                math.ceil(n / split_rows) for n in live)
+            row = dict(name="decode_attention", case=case, cache=kind, fill=list(ends),
                        shape=dict(S=S, W=W, H=H, Hkv=Hkv, D=D, NL=NL, L=L, layer=layer),
+                       masked_rows=(~valid).sum(1).tolist(),
                        max_abs_err=err, tolerance=tol, ok=ok, ms=ms, eager_ms=call_ms,
-                       plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                       splits=splits, live_blocks=live_blocks, bound_share=b_ms / ms)
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms, splits=math.ceil(L / split_rows),
+                       live_blocks=live_blocks, bound_share=b_ms / ms)
             emit("kernel", **row)
-            check(ok, f"decode_attention ({kind} cache, fill {fill}) disagrees with "
-                      "its plain version")
+            check(ok, f"decode_attention ({case}, {kind} cache, fill {ends}) disagrees "
+                      "with its plain version")
             results.append(row)
-    main = next(r for r in results if r["cache"] == "int8" and r["fill"] == 1200)
+    del caches, kq, vq, kd, vd
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_attention(dev):
+    """The attention at the shapes of both paths that run it: ``generate``
+    (S = 2: one slot and its uncond half, whose prompt is masked down to its
+    last token) over a range of fills, in both cache kinds; and ``serve``
+    (S = 4, a 2048-row int8 buffer behind a 675-row left-padded prompt
+    bucket: slot 0's prompt fills it, slot 1's 15-token prompt leaves 660
+    pad rows, both uncond halves mask all but the last prompt row; each
+    slot at its own fill, as after a refill)."""
+    import torch
+
+    S, L, P = 2, 2560, 15
+    valid = torch.ones((S, L), dtype=torch.bool, device=dev)
+    valid[1, :P - 1] = False  # the CFG uncond half masks its prompt rows
+    fills = [(f, f) for f in (150, 1200, 2400, L - 16)]
+    main_rows = _attention_cases(dev, "generate", S, L, valid, fills, ("int8", "bf16"), 1)
+    S, L, P, pad = 4, 2048, 675, 660
+    valid = torch.ones((S, L), dtype=torch.bool, device=dev)
+    valid[1, :pad] = False  # slot 1's left padding
+    valid[2:, :P - 1] = False  # the uncond halves
+    fills = [(700, 1400, 700, 1400), (1900, 1010, 1900, 1010), (L - 16, 676, L - 16, 676)]
+    serve_rows = _attention_cases(dev, "serve", S, L, valid, fills, ("int8",), 4)
+    main = next(r for r in main_rows if r["cache"] == "int8" and r["fill"][0] == 1200)
     return dict(name="decode_attention", route="cuda",
                 source="sjd_tpu_torch/csrc/decode_attention.cu",
-                replaces="sjd_tpu/ops/decode_attention.py:38", max_abs_err=worst,
+                replaces="sjd_tpu/ops/decode_attention.py:38",
+                max_abs_err=max(r["max_abs_err"] for r in main_rows + serve_rows),
                 ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"])
 
@@ -328,32 +396,172 @@ def phase_forward(dev):
     check(ok, "kernel forward disagrees with the plain forward")
 
 
-def phase_generate(dev):
+PROMPT = "a photo of a red fox in the snow"
+
+
+def phase_load(dev):
     import torch
 
-    from sjd_tpu_torch.data.item_processor import split_generation
     from sjd_tpu_torch.loader import load_lumina_mgpt
-    from sjd_tpu_torch.ops.decode_attention import decode_attention
-    from sjd_tpu_torch.ops.fused_epilogue import fused_epilogue_into_cache, write_kv_layer
 
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     model = load_lumina_mgpt(target_size=TARGET_SIZE, device=dev)
     torch.cuda.synchronize()
-    load_s = time.time() - t0
     cfg = model.engine.model_cfg
+    emit("load", seconds=time.time() - t0, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         vocab=cfg.vocab_size, kv_quant=cfg.kv_quant,
+         smoke_reasons=model.extras["smoke_reasons"])
     check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.kv_quant)
           == (32, 4096, 65536, True), f"not the 7B config: {cfg}")
+    return model
+
+
+def _state_diff(a, b):
+    """The first EngineState tensor (by name) whose bytes differ, or None."""
+    import torch
+
+    for name in ("tokens", "length", "accept_hist", "steps_multi", "finished",
+                 "carried_tokens", "carried_count", "carried_probs", "last_prob"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            return name
+    for name, x, y in zip(("k", "v", "k_scale", "v_scale"), a.kv, b.kv):
+        if x is not None and not torch.equal(x, y):
+            return f"kv.{name}"
+    return None if a.nfe == b.nfe else "nfe"
+
+
+def _zero_launch_counts() -> None:
+    from sjd_tpu_torch.ops.decode_attention import decode_attention
+    from sjd_tpu_torch.ops.fused_epilogue import fused_epilogue_into_cache, write_kv_layer
 
     fused_epilogue_into_cache.launches = 0
     decode_attention.launches = 0
     write_kv_layer.calls = 0
+
+
+# the kernels' symbols as the profiler names them (csrc/*.cu): the
+# epilogue's, and the attention's split and merge kernels
+KERNEL_SYMBOLS = ("::epilogue_kernel<", "::flash_decode_split_kernel<", "::merge_splits_kernel<")
+
+
+def _profiled_launches(run) -> dict:
+    """The kernels' launches the device ran during ``run()``, by symbol, as
+    torch.profiler traces them (replayed graph nodes included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    seen = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            for sym in seen:
+                if sym in ev.key:
+                    seen[sym] += ev.count
+    return seen
+
+
+def phase_graph(dev, model, steps: int = 32, profiled_steps: int = 2):
+    """The captured decode step against the eager one on the 7B: the same
+    seed and calls, ``steps`` timed decode steps each after one untimed
+    step (on the graph engine: replays of a graph captured beforehand).
+    Each engine's run starts from launch counts of 0; the launches that ran
+    must be 32 per forward on both. Then ``profiled_steps`` more replays
+    under torch.profiler: each must run each kernel 32 times on the device,
+    which is what GraphStats.executed assumes of a replay."""
+    import torch
+
+    from sjd_tpu_torch.models.chameleon import lumina_engine
+    from sjd_tpu_torch.ops import launch_counts
+
+    ids = torch.tensor([model.extras["prompt_ids_fn"](PROMPT)], dtype=torch.int32,
+                       device=dev)
+    layers = model.engine.model_cfg.num_layers
+    runs, launched = {}, {}
+    for graph in (False, True):
+        eng = lumina_engine(target_size=TARGET_SIZE, cuda_graph=graph,
+                            model_cfg=model.engine.model_cfg, device=dev)
+        _zero_launch_counts()
+        # a throwaway run: on the graph engine the warm-up step and the
+        # capture. Both engines make it, so that their caches hold the same
+        # rows outside the live prefix too (the uncond half's masked prompt
+        # rows attend to the whole buffer, so their K/V depend on it)
+        forwards = eng.generate(model.params, 0, ids, max_steps=3).nfe
+        _, st = eng.generate(model.params, 0, ids, max_steps=2, return_state=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = eng.resume(model.params, st, max_steps=steps, return_state=True)
+        torch.cuda.synchronize()
+        runs[graph] = (eng, st, 1e3 * (time.perf_counter() - t0) / steps)
+        forwards += st.nfe
+        # every forward here has T <= 32 (a 15-token prompt, then windows of
+        # 16): each layer of each forward launches each kernel once
+        launched[graph] = dict(executed=eng.stats.executed(launch_counts()),
+                               expected=layers * forwards)
+    (e_eng, e_st, e_ms), (g_eng, g_st, g_ms) = runs[False], runs[True]
+    diff = _state_diff(e_st, g_st)
+    first = None
+    if diff is not None:
+        # step both again from the prefill, one decode step per call, to
+        # name the first step and tensor that differ
+        sts = [eng.generate(model.params, 0, ids, max_steps=1, return_state=True)[1]
+               for eng in (e_eng, g_eng)]
+        for i in range(1, steps + 2):
+            for eng, st in zip((e_eng, g_eng), sts):
+                eng.resume(model.params, st, max_steps=1)
+            name = _state_diff(*sts)
+            if name is not None:
+                first = {"decode_step": i, "tensor": name}
+                break
+    replays = g_eng.stats.replays
+    profiled = _profiled_launches(
+        lambda: g_eng.resume(model.params, g_st, max_steps=profiled_steps))
+    profiled_replays = g_eng.stats.replays - replays
+    emit("graph", steps=steps, nfe=g_st.nfe, eager_ms_per_forward=e_ms,
+         graph_ms_per_forward=g_ms, speedup=e_ms / g_ms, equal=diff is None,
+         first_difference=first, tokens=int(g_st.length[0]),
+         accept_hist=g_st.accept_hist.tolist(), captures=g_eng.stats.captures,
+         capture_s=g_eng.stats.capture_s, graph_replays=g_eng.stats.replays,
+         eager_steps=g_eng.stats.eager_steps,
+         launches={"eager" if not k else "graph": v for k, v in launched.items()},
+         profiled_replays=profiled_replays, profiled_kernel_launches=profiled)
+    check(diff is None, f"graph and eager decode steps differ: first at {first}, "
+                        f"after {steps} steps in {diff}")
+    # replays: one in the throwaway run, one in the step before the window
+    check(g_eng.stats.captures == 1 and replays == steps + 2, f"graph engine: {g_eng.stats}")
+    for path, got in launched.items():
+        for name, n in got["executed"].items():
+            check(n == got["expected"], f"{name}: {n} launches ran on the "
+                  f"{'graph' if path else 'eager'} engine, not {got['expected']}")
+    check(profiled_replays == profiled_steps, f"{profiled_replays} replays profiled")
+    for sym, n in profiled.items():
+        check(n == layers * profiled_steps,
+              f"the profiler saw {n} launches of {sym} in {profiled_steps} replays")
+    del runs, e_eng, g_eng, e_st, g_st
+    torch.cuda.empty_cache()
+
+
+def phase_generate(dev, model):
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.data.item_processor import split_generation
+    from sjd_tpu_torch.ops import launch_counts
+    from sjd_tpu_torch.ops.fused_epilogue import write_kv_layer
+
+    cfg = model.engine.model_cfg
+    torch.cuda.reset_peak_memory_stats()
+    model.engine.stats = GraphStats()
+    _zero_launch_counts()
     t0 = time.time()
-    img = model.sample_fn("a photo of a red fox in the snow", 0)
+    img = model.sample_fn(PROMPT, 0)
     torch.cuda.synchronize()
     wall_s = time.time() - t0
-    launches = {"fused_epilogue": fused_epilogue_into_cache.launches,
-                "decode_attention": decode_attention.launches}
+    stats = model.engine.stats
+    counted = launch_counts()
+    launches = stats.executed(counted)
     kv_writes = write_kv_layer.calls
 
     res = model.extras["last_result"]
@@ -368,15 +576,19 @@ def phase_generate(dev):
          hidden=cfg.hidden_size, vocab=cfg.vocab_size, window=model.engine.config.window,
          tokens_generated=int(res.gen_count[0]), nfe=nfe,
          accept_hist=res.accept_hist.tolist(), wall_s=wall_s, vq_decode_s=vq_s,
-         ms_per_forward=1e3 * (wall_s - vq_s) / nfe, load_s=load_s,
+         ms_per_forward=1e3 * (wall_s - vq_s) / nfe,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          image_shape=list(img.shape), image_dtype=str(img.dtype),
          image_tokens=len(spans[-1]) if spans else 0, launches=launches,
-         launches_expected=cfg.num_layers * nfe, write_kv_layer_calls=kv_writes,
-         smoke_reasons=model.extras["smoke_reasons"])
+         launches_counted=counted, launches_expected=cfg.num_layers * nfe,
+         captures=stats.captures, graph_replays=stats.replays,
+         eager_steps=stats.eager_steps, capture_s=stats.capture_s,
+         write_kv_layer_calls=kv_writes)
     check(tuple(img.shape) == (TARGET_SIZE, TARGET_SIZE, 3) and str(img.dtype) == "uint8",
           f"image is {img.shape} {img.dtype}")
     check((img == again).all(), "a second VQ decode of the same tokens differs")
+    check(stats.captures >= 1 and stats.replays > 0, f"the graph path did not run: {stats}")
+    check(stats.eager_steps + stats.replays + 1 == nfe, f"{stats} for {nfe} forwards")
     for name, n in launches.items():
         # every forward here has T <= 32 (a 15-token prompt, then windows of
         # 16), so each layer of each forward launches each kernel once
@@ -385,6 +597,126 @@ def phase_generate(dev):
     # the epilogue kernel writes the window's K/V rows itself
     check(kv_writes == 0, f"write_kv_layer ran {kv_writes} times on the kernel path")
     return launches
+
+
+def phase_serve(dev, model, size: int = 512, chunk_steps: int = 64, rows_given: int = 20):
+    """Continuous batching on the 7B: 3 requests at ``size`` px through 2
+    slots, stopping each at its image's end. Request 0 continues an image
+    whose first ``rows_given`` rows are in its prompt, so it ends some 200
+    forwards before request 1 (more than a chunk): its slot is refilled
+    with request 2 while request 1 is live. This traffic is shaped for that
+    check: three requests, one of them a part image, give no serving rate;
+    the generated tokens per second are printed as a smoke figure only.
+
+    The launch counts start at 0 just before the batcher runs and are read
+    just after: each decode forward (T <= 32) runs each kernel once per
+    layer; the 675-row prefills take the plain path. The live request's
+    tokens are then held against a run of the same two requests with no
+    refill on an engine that steps eagerly (cuda_graph=False), so neither
+    the graph nor the refill is in the reference."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.serving import ContinuousBatcher, seed_generators
+    from sjd_tpu_torch.data.item_processor import size_token_id
+    from sjd_tpu_torch.models.chameleon import (
+        IMAGE_END_ID, IMAGE_START_ID, IMAGE_VOCAB_END, IMAGE_VOCAB_START, NEW_LINE_ID,
+        lumina_engine)
+    from sjd_tpu_torch.ops import launch_counts
+
+    rng = np.random.default_rng(7)
+    grid = size // 16
+    header = [IMAGE_START_ID, size_token_id(size), size_token_id(size)]
+    given = rng.integers(IMAGE_VOCAB_START, IMAGE_VOCAB_END + 1, (rows_given, grid))
+    body = [int(t) for row in given for t in (*row, NEW_LINE_ID)]
+    reqs = [list(map(int, rng.integers(9000, 13000, 12))) + header + (body if i == 0 else [])
+            for i in range(3)]
+    P = max(map(len, reqs))
+    prompts = np.asarray([[0] * (P - len(r)) + r for r in reqs], np.int32)
+    masks = np.asarray([[False] * (P - len(r)) + [True] * len(r) for r in reqs])
+    seeds = [101, 202, 303]
+
+    def engine(cuda_graph):
+        eng = lumina_engine(target_size=size, cuda_graph=cuda_graph,
+                            model_cfg=model.engine.model_cfg, device=dev)
+        # stop each request at its image's end
+        eng.config = dataclasses.replace(eng.config, eos_id=IMAGE_END_ID)
+        return eng
+
+    eng = engine(True)
+    held_gb = torch.cuda.memory_allocated() / 1e9  # weights, the generate engine's state
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(eng, model.params, chunk_steps=chunk_steps)
+    _zero_launch_counts()
+    t0 = time.time()
+    done = batcher.run(None, prompts, prompt_masks=masks, batch=2, seeds=seeds)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    launches = eng.stats.executed(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = dict(captures=eng.stats.captures, graph_replays=eng.stats.replays,
+                 eager_steps=eng.stats.eager_steps, capture_s=eng.stats.capture_s)
+    decode_forwards = eng.stats.eager_steps + eng.stats.replays
+    layers = model.engine.model_cfg.num_layers
+    t0 = time.time()
+    images = [model.extras["decode_image_fn"](c.tokens.tolist()) for c in done]
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    gen_tokens = sum(c.gen_count for c in done)
+
+    live = [i for r in batcher.last_refills for i in r["live"]]
+    same, first_diff, across = None, None, None
+    if live:
+        k = live[0]
+        # the live request again, with the same companion at the same batch
+        # width and no refill: one uninterrupted generate, stepped eagerly
+        ref = engine(False)
+        want = ref.generate(model.params, seed_generators(seeds[:2], dev),
+                            torch.as_tensor(prompts[:2], device=dev),
+                            prompt_mask=torch.as_tensor(masks[:2], device=dev))
+        del ref
+        want_k = want.tokens[k, :int(want.length[k])].cpu().numpy()
+        same = bool(np.array_equal(want_k, done[k].tokens))
+        if not same:
+            n = min(len(want_k), len(done[k].tokens))
+            at = np.flatnonzero(want_k[:n] != done[k].tokens[:n])
+            first_diff = int(at[0]) if at.size else n
+        # and alone, at batch width 1 (reported, not held: cuBLAS may pick
+        # other kernels for another width and change low bits)
+        alone = eng.generate(model.params, seed_generators([seeds[k]], dev),
+                             torch.as_tensor(prompts[k:k + 1], device=dev),
+                             prompt_mask=torch.as_tensor(masks[k:k + 1], device=dev))
+        n1 = int(alone.length[0])
+        across = bool(np.array_equal(alone.tokens[0, :n1].cpu().numpy(), done[k].tokens))
+    emit("serve", size=size, requests=len(reqs), slots=2, chunk_steps=chunk_steps,
+         prompt_rows=P, rows_given=rows_given, seeds=seeds, nfe=batcher.last_nfe,
+         decode_forwards=decode_forwards, accept_hist=batcher.last_accept_hist.tolist(),
+         gen_counts=[c.gen_count for c in done], refills=batcher.last_refills,
+         serve_s=serve_s, vq_decode_s=decode_s,
+         smoke_gen_tokens_per_s=gen_tokens / serve_s,
+         peak_mem_gb=peak, held_before_gb=held_gb,
+         image_shapes=[list(im.shape) for im in images], launches=launches,
+         launches_expected=layers * decode_forwards,
+         live_request_equal_to_eager_without_refill=same,
+         first_differing_token=first_diff,
+         live_request_equal_at_width_1=across, **stats)
+    check([c.prompt_index for c in done] == [0, 1, 2], "not every request completed")
+    for im in images:
+        check(tuple(im.shape) == (size, size, 3) and str(im.dtype) == "uint8",
+              f"image is {im.shape} {im.dtype}")
+    check(len(batcher.last_refills) >= 1, "no refill happened")
+    check(bool(live), f"no request was live across a refill: {batcher.last_refills}")
+    check(same, f"the request live across the refill differs from the eager run "
+                f"without refill at token {first_diff}")
+    check(stats["captures"] == 1, f"the serve engine recaptured: {stats}")
+    # forwards: the prefill, one per refill, the rest decode steps
+    check(decode_forwards == batcher.last_nfe - 1 - len(batcher.last_refills),
+          f"{decode_forwards} decode forwards of {batcher.last_nfe}")
+    for name, n in launches.items():
+        check(n == layers * decode_forwards,
+              f"{name}: {n} launches ran in serve for {decode_forwards} decode forwards")
 
 
 def main() -> int:
@@ -411,7 +743,10 @@ def main() -> int:
     phase_build()
     kernels = [phase_epilogue(dev), phase_attention(dev)]
     phase_forward(dev)
-    launches = phase_generate(dev)
+    model = phase_load(dev)
+    phase_graph(dev, model)
+    launches = phase_generate(dev, model)
+    phase_serve(dev, model)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     emit("done", seconds=time.time() - t_start)

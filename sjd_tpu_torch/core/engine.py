@@ -1,26 +1,51 @@
-"""The SJD engine (sjd_tpu/core/engine.py) as a host-driven PyTorch loop.
+"""The SJD engine (sjd_tpu/core/engine.py) in PyTorch: a decode step that
+is captured once as a CUDA graph and replayed.
 
-Static shapes throughout, as in the JAX engine, so that a later change can
-capture a step as a CUDA graph: a [B, L_buf] token buffer, the
-[S, NL, L_buf, Hkv, D] KV buffer written in place, a [B, W] draft window.
-KV "rollback" is free: acceptance only advances each sample's ``length``,
-and the next window overwrites rejected rows. CFG runs as a doubled batch
-([cond; uncond]) through one forward, with the uncond prompt either masked
-down to its last token (``mask_prompt``, Lumina) or a separate negative
-prompt (``neg_prompt``).
+Static shapes throughout, as in the JAX engine: a [B, L_buf] token buffer,
+the [S, NL, L_buf, Hkv, D] KV buffer written in place, a [B, W] draft
+window. KV "rollback" is free: acceptance only advances each sample's
+``length``, and the next window overwrites rejected rows. CFG runs as a
+doubled batch ([cond; uncond]) through one forward, with the uncond prompt
+either masked down to its last token (``mask_prompt``, Lumina) or a
+separate negative prompt (``neg_prompt``).
+
+The step writes its results in place into the state's own tensors, the
+counterpart of the JAX engine's donated state, so a decode step is a fixed
+sequence of kernels over fixed buffers. The JAX engine runs the whole
+generation as one jit-compiled ``while_loop``; here, on CUDA, the first
+decode step of a shape runs eagerly (the warm-up: kernel libraries, the
+attention kernel's shared-memory limit, cuBLAS handles), then the step is
+captured once as a CUDA graph per (shape, params) and replayed for every
+further step. The host checks ``finished`` and the NFE cap after each step,
+as the ``while_loop``'s condition does. On the CPU, or with
+``cuda_graph=False``, the same step runs eagerly. A capture or replay that
+fails raises: there is no eager fallback.
+
+The engine owns one state (the KV cache, tokens, lengths, ...) and the
+graph captured over it: ``generate``'s prefill writes into it, and the
+``EngineState`` it returns aliases it, so a later ``generate`` overwrites
+it; a ``generate`` of another shape releases both and allocates anew. Keep
+only the returned state, as with the JAX engine's donated buffers:
+``res, state = eng.resume(params, state, ...)``; ``resume`` of a state the
+engine no longer owns raises. ``GenerateResult`` holds copies and
+survives.
 
 Randomness: one ``torch.Generator`` per slot. Each step draws, per slot and
 in a fixed order, the fresh draft seeds, the Gumbel noise for the window's
 samples, the acceptance uniforms and the Gumbel noise for the residual
-resample, so a slot's trajectory depends on its own generator alone.
+resample (``_draws``, on the host side of the replay: the draws are copied
+into the graph's input buffers), so a slot's trajectory depends on its own
+generator alone, on either path, and ``refill`` can give a slot a new
+generator without a recapture.
 
-``resume``, ``refill`` and the 1-token AR fast path are not ported yet.
+The 1-token AR fast path and prompt embeddings are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Union
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -94,6 +119,11 @@ class EngineState:
     accept_hist: Tensor  # [W+1] int32: decode steps by accepted length
 
 
+# the EngineState tensors with one row per slot (refill selects them per slot)
+_B_FIELDS = ("tokens", "length", "carried_tokens", "carried_probs", "carried_count",
+             "last_prob", "finished", "prompt_len")
+
+
 class StepDraws(NamedTuple):
     rand: Tensor  # [B, W-1] int32 fresh draft seeds
     gumbel_tok: Optional[Tensor]  # [B, W, V] noise for the window's samples
@@ -110,20 +140,68 @@ class GenerateResult(NamedTuple):
     accept_hist: Tensor  # [W+1]
 
 
+@dataclasses.dataclass
+class GraphStats:
+    """Capture and replay accounting (the counterpart of the JAX package's
+    compile accounting, utils/compile_watch.py).
+
+    A kernel wrapper counts a launch when Python calls it, so a capture
+    counts the launches it records (which do not run then) and a replay
+    counts none. ``executed(counts)`` turns the wrappers' counters into the
+    launches that ran: minus the captures' records, plus each replay's."""
+
+    captures: int = 0
+    capture_s: float = 0.0  # wall seconds inside captures
+    replays: int = 0
+    eager_steps: int = 0  # decode steps run eagerly (warm-up, CPU, cuda_graph=False)
+    captured_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    replayed_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def executed(self, counts: Dict[str, int]) -> Dict[str, int]:
+        return {k: n - self.captured_launches.get(k, 0) + self.replayed_launches.get(k, 0)
+                for k, n in counts.items()}
+
+
+class _Graph(NamedTuple):
+    graph: Any  # torch.cuda.CUDAGraph over the engine's state
+    params: Any  # the params object captured (kept alive with the graph)
+    draws: StepDraws  # the graph's input buffers
+    launches: Dict[str, int]  # kernel launches one replay runs
+
+
+def _add(into: Dict[str, int], counts: Dict[str, int], times: int = 1) -> None:
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + times * n
+
+
+def seeded_generator(seq: np.random.SeedSequence, device) -> torch.Generator:
+    """A generator on ``device`` seeded from a numpy SeedSequence."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return g
+
+
 def slot_generators(seed: int, batch: int, device) -> List[torch.Generator]:
     """``batch`` independent per-slot generators spawned from one seed."""
-    gens = []
-    for child in np.random.SeedSequence(seed).spawn(batch):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(child.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-        gens.append(g)
-    return gens
+    return [seeded_generator(child, device)
+            for child in np.random.SeedSequence(seed).spawn(batch)]
+
+
+def _derived_generator(gen: torch.Generator, salt: int) -> torch.Generator:
+    """A generator seeded from ``gen``'s initial seed and ``salt``, leaving
+    ``gen`` where it is (jax.random.fold_in's role in refill)."""
+    return seeded_generator(np.random.SeedSequence([gen.initial_seed(), int(salt)]),
+                            gen.device)
 
 
 class SJDEngine:
     def __init__(self, model: ModelFns, config: EngineConfig,
                  grammar_spec: grammar_lib.GrammarSpec,
-                 sampling_params: processors_lib.SamplingParams):
+                 sampling_params: processors_lib.SamplingParams,
+                 *, cuda_graph: bool = True):
+        """``cuda_graph``: on CUDA, replay a captured graph of the decode
+        step (the default) or run every step eagerly (False). The CPU always
+        runs eagerly."""
         if config.scheme not in ("speculative_jacobi", "jacobi"):
             raise ValueError(f"unknown scheme {config.scheme!r}")
         self.model = model
@@ -132,6 +210,12 @@ class SJDEngine:
         do_cfg = (sampling_params.do_cfg and config.cfg_mode != "none"
                   and sampling_params.guidance_scale != 1.0)
         self.sampling = dataclasses.replace(sampling_params, do_cfg=do_cfg)
+        self.cuda_graph = cuda_graph
+        self.stats = GraphStats()
+        self._state: Optional[EngineState] = None  # reused while the shape holds
+        self._graph: Optional[_Graph] = None  # captured over self._state
+        self._warm = False  # the warm-up step ran on self._state
+        self._stream = None  # the side stream of warm-up and capture
 
     @property
     def device(self) -> torch.device:
@@ -149,41 +233,116 @@ class SJDEngine:
         neg_mask: Optional[Tensor] = None,
         gstate: Optional[grammar_lib.GrammarState] = None,
         max_steps: Optional[int] = None,
-    ) -> GenerateResult:
+        return_state: bool = False,
+    ):
         """``rng`` is a seed (spawned into per-slot generators) or a list of
-        B generators on the engine's device, one per slot."""
-        dev = self.device
-        prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
-        B = prompt.shape[0]
-        if prompt_mask is None:
-            prompt_mask = torch.ones(prompt.shape, dtype=torch.bool, device=dev)
-        prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
-        if gstate is None:
-            gstate = grammar_lib.init_state(B, device=dev)
-        if self.sampling.do_cfg and self.config.cfg_mode == "neg_prompt":
-            if neg_prompt is None:
-                raise ValueError("cfg_mode=neg_prompt requires neg_prompt")
-            neg_prompt = torch.as_tensor(neg_prompt, dtype=torch.int32, device=dev)
-            neg_mask = (torch.ones(neg_prompt.shape, dtype=torch.bool, device=dev)
-                        if neg_mask is None else
-                        torch.as_tensor(neg_mask, dtype=torch.bool, device=dev))
-        if isinstance(rng, (int, np.integer)):
-            gens = slot_generators(int(rng), B, dev)
-        else:
-            gens = list(rng)
-            if len(gens) != B:
-                raise ValueError(f"need {B} per-slot generators, got {len(gens)}")
+        B generators on the engine's device, one per slot.
+
+        ``max_steps`` bounds the forwards of this call (the prefill counts
+        one); with ``return_state`` and :meth:`resume` it chunks one
+        generation into several calls with the same result. The returned
+        state is the engine's own (module docstring)."""
+        prompt, prompt_mask, neg_prompt, neg_mask, gstate = self._normalize_prompt_inputs(
+            prompt, prompt_mask, neg_prompt, neg_mask, gstate)
+        gens = self._normalize_rng(rng, prompt.shape[0])
         cap = self.config.resolved_nfe_cap() if max_steps is None else max_steps
         with torch.no_grad():
             state = self._prefill_state(params, gens, prompt, prompt_mask,
                                         neg_prompt, neg_mask, gstate)
-            while state.nfe < cap and not bool(state.finished.all()):
-                state = self._step(params, state)
-        return GenerateResult(
-            tokens=state.tokens, length=state.length, nfe=state.nfe,
-            steps_multi=state.steps_multi,
-            gen_count=state.length - state.prompt_rows,
-            accept_hist=state.accept_hist)
+            self._run(params, state, cap)
+        result = self._result_from_state(state)
+        return (result, state) if return_state else result
+
+    def resume(self, params, state: EngineState, max_steps: Optional[int] = None,
+               return_state: bool = False):
+        """Continue a generation returned with ``return_state=True`` for up
+        to ``max_steps`` more forwards. ``state`` is updated in place; keep
+        only the returned state, in the ``res, state = eng.resume(params,
+        state, ...)`` pattern."""
+        cap = state.nfe + (max_steps if max_steps is not None
+                           else self.config.resolved_nfe_cap())
+        with torch.no_grad():
+            self._run(params, state, cap)
+        result = self._result_from_state(state)
+        return (result, state) if return_state else result
+
+    def refill(
+        self,
+        params,
+        state: EngineState,
+        prompt: Tensor,  # [B, P]: P must match the original prompt rows
+        refill_mask,  # [B] bool (host): slots to re-arm with fresh prompts
+        prompt_mask: Optional[Tensor] = None,
+        neg_prompt: Optional[Tensor] = None,
+        neg_mask: Optional[Tensor] = None,
+        gstate: Optional[grammar_lib.GrammarState] = None,
+        rng: Union[None, int, Sequence[torch.Generator]] = None,
+    ) -> EngineState:
+        """Continuous batching: re-arm the slots of ``refill_mask`` with
+        fresh prompts between :meth:`resume` chunks, with one prefill
+        forward (NFE rises by 1), while every other slot, its generator
+        included, is left bit-exactly as it was.
+
+        The prefill runs into a small cache of 512-row multiples, whose rows
+        [0, R) are merged into the state's cache in place; tokens, lengths,
+        carried drafts, grammar state and the rest are selected per slot,
+        also in place, so a captured graph of the step replays on as
+        before. ``prompt`` is padded to the original prompt's width; rows
+        outside ``refill_mask`` are ignored. ``rng`` gives the refilled
+        slots their generators (a seed or B generators; other rows are
+        ignored). With None each refilled slot gets one derived from its old
+        generator's initial seed and the NFE, without advancing any
+        generator."""
+        self._check_own(state)
+        prompt, prompt_mask, neg_prompt, neg_mask, gstate = self._normalize_prompt_inputs(
+            prompt, prompt_mask, neg_prompt, neg_mask, gstate)
+        B = prompt.shape[0]
+        dev = self.device
+        mask = np.asarray(refill_mask.cpu() if isinstance(refill_mask, Tensor)
+                          else refill_mask, dtype=bool).reshape(B)
+        if rng is None:
+            new_gens = [_derived_generator(g, state.nfe) for g in state.gens]
+        else:
+            new_gens = self._normalize_rng(rng, B)
+        # the other slots' prefill noise comes from throwaway generators, so
+        # that their own do not advance
+        fill_gens = [new_gens[b] if mask[b] else torch.Generator(device=dev)
+                     for b in range(B)]
+        P_rows = prompt.shape[1]
+        if self.config.cfg_mode == "neg_prompt" and self.sampling.do_cfg:
+            P_rows = max(P_rows, neg_prompt.shape[1])
+        small = min(((P_rows + self.config.window + 512) // 512) * 512, state.valid.shape[1])
+        with torch.no_grad():
+            fresh = self._prefill_state(params, fill_gens, prompt, prompt_mask, neg_prompt,
+                                        neg_mask, gstate, kv_buf_rows=small)
+            if fresh.tokens.shape != state.tokens.shape:
+                raise ValueError(
+                    f"refill prompt rows must reproduce the engine's buffer: got "
+                    f"{tuple(fresh.tokens.shape)} vs {tuple(state.tokens.shape)}; pad "
+                    f"refill prompts to the original prompt width")
+            idx_b = torch.as_tensor(np.flatnonzero(mask), device=dev)
+            idx_s = torch.as_tensor(np.flatnonzero(np.tile(mask, self._S_factor)), device=dev)
+
+            def put(dst, src, idx):
+                dst.index_copy_(0, idx, src.index_select(0, idx))
+
+            R = fresh.valid.shape[1]
+            # KV leaves are [S, NL, rows, ...]: only rows [0, R) carry the
+            # fresh prompt; rows past R are the slot's old history, which
+            # its next windows overwrite before they are read
+            for dst, src in zip(state.kv, fresh.kv):
+                if dst is not None:
+                    put(dst[:, :, :R], src, idx_s)
+            put(state.valid[:, :R], fresh.valid, idx_s)
+            put(state.n_pad, fresh.n_pad, idx_s)
+            for name in _B_FIELDS:
+                put(getattr(state, name), getattr(fresh, name), idx_b)
+            for dst, src in zip(state.gstate, fresh.gstate):
+                put(dst, src, idx_b)
+        for b in np.flatnonzero(mask):
+            state.gens[b] = new_gens[b]
+        state.nfe += 1  # the refill prefill forward
+        return state
 
     # -- implementation --------------------------------------------------------
 
@@ -200,8 +359,47 @@ class SJDEngine:
             return torch.zeros_like(gstate.in_image)
         return ~gstate.in_image
 
+    def _normalize_prompt_inputs(self, prompt, prompt_mask, neg_prompt, neg_mask, gstate):
+        """Shared by generate() and refill(): tensors on the engine's
+        device, default masks and grammar state, the negative prompt."""
+        dev = self.device
+        prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+        if prompt_mask is None:
+            prompt_mask = torch.ones(prompt.shape, dtype=torch.bool, device=dev)
+        prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
+        if gstate is None:
+            gstate = grammar_lib.init_state(prompt.shape[0], device=dev)
+        if self.sampling.do_cfg and self.config.cfg_mode == "neg_prompt":
+            if neg_prompt is None:
+                raise ValueError("cfg_mode=neg_prompt requires neg_prompt")
+            neg_prompt = torch.as_tensor(neg_prompt, dtype=torch.int32, device=dev)
+            neg_mask = (torch.ones(neg_prompt.shape, dtype=torch.bool, device=dev)
+                        if neg_mask is None else
+                        torch.as_tensor(neg_mask, dtype=torch.bool, device=dev))
+        return prompt, prompt_mask, neg_prompt, neg_mask, gstate
+
+    def _normalize_rng(self, rng, batch: int) -> List[torch.Generator]:
+        if isinstance(rng, (int, np.integer)):
+            return slot_generators(int(rng), batch, self.device)
+        gens = list(rng)
+        if len(gens) != batch:
+            raise ValueError(f"need {batch} per-slot generators, got {len(gens)}")
+        return gens
+
+    def _result_from_state(self, state: EngineState) -> GenerateResult:
+        # copies: the state's tensors are reused by the next call
+        return GenerateResult(
+            tokens=state.tokens.clone(), length=state.length.clone(), nfe=state.nfe,
+            steps_multi=state.steps_multi.clone(),
+            gen_count=state.length - state.prompt_rows,
+            accept_hist=state.accept_hist.clone())
+
     def _prefill_state(self, params, gens, prompt, prompt_mask, neg_prompt,
-                       neg_mask, gstate0) -> EngineState:
+                       neg_mask, gstate0, kv_buf_rows: Optional[int] = None) -> EngineState:
+        """The post-prefill state, written into the engine's state if it has
+        this shape (else allocated anew). ``kv_buf_rows`` sets the KV
+        buffer's rows instead: refill's small cache, a fresh state that the
+        engine does not keep."""
         cfg = self.config
         dev = self.device
         B, P = prompt.shape
@@ -210,10 +408,20 @@ class SJDEngine:
         neg_cfg = cfg.cfg_mode == "neg_prompt" and self.sampling.do_cfg
         P_rows = max(P, neg_prompt.shape[1]) if neg_cfg else P
         L_buf = cfg.resolved_buf_len(P_rows)
-        kv_buf = L_buf + W + 1
+        kv_buf = kv_buf_rows if kv_buf_rows is not None else L_buf + W + 1
         align = 512 if kv_buf > 512 else 8
         kv_buf = ((kv_buf + align - 1) // align) * align
         S = B * self._S_factor
+        static = None
+        if kv_buf_rows is None:
+            old = self._state
+            shapes = ((B, L_buf), (S, kv_buf))
+            if old is not None and (old.tokens.shape, old.valid.shape) == shapes:
+                static = old
+            else:
+                # another shape: release the old state and its graph before
+                # the new cache is allocated
+                self._state, self._graph, self._warm = None, None, False
 
         if neg_cfg:
             Pc = max(P, neg_prompt.shape[1])
@@ -240,7 +448,7 @@ class SJDEngine:
 
         gstate0 = grammar_lib.update_state(self.spec, gstate0, prompt, prompt_mask)
 
-        kv = self.model.init_cache(S, kv_buf)
+        kv = static.kv if static is not None else self.model.init_cache(S, kv_buf)
         valid = torch.ones((S, kv_buf), dtype=torch.bool, device=dev)
         valid[:, :P] = mask_s
         n_pad = (~mask_s).sum(1).to(torch.int32)
@@ -266,8 +474,8 @@ class SJDEngine:
         gstate = grammar_lib.update_state(
             self.spec, gstate0, y0[:, None],
             torch.ones((B,), dtype=torch.int32, device=dev))
-        return EngineState(
-            gens=gens,
+        fresh = EngineState(
+            gens=list(gens),
             tokens=tokens,
             length=torch.full((B,), P + 1, dtype=torch.int32, device=dev),
             n_pad=n_pad,
@@ -276,7 +484,7 @@ class SJDEngine:
             carried_tokens=torch.zeros((B, W), dtype=torch.int32, device=dev),
             carried_probs=torch.zeros((B, W, V), dtype=torch.float32, device=dev),
             carried_count=torch.zeros((B,), dtype=torch.int32, device=dev),
-            last_prob=probs0[:, 0, :],
+            last_prob=probs0[:, 0, :].contiguous(),
             gstate=gstate,
             finished=y0 == cfg.eos_id,
             nfe=1,
@@ -285,6 +493,22 @@ class SJDEngine:
             prompt_rows=P,
             accept_hist=torch.zeros((W + 1,), dtype=torch.int32, device=dev),
         )
+        if kv_buf_rows is not None:
+            return fresh
+        if static is None:
+            self._state = fresh
+            return fresh
+        # the engine's state: same tensors, new contents
+        for f in dataclasses.fields(EngineState):
+            old, new = getattr(static, f.name), getattr(fresh, f.name)
+            if isinstance(old, Tensor):
+                old.copy_(new)
+            elif f.name == "gstate":
+                for o, n in zip(old, new):
+                    o.copy_(n)
+            elif f.name != "kv":  # the forward wrote the cache in place
+                setattr(static, f.name, new)
+        return static
 
     def _draws(self, st: EngineState) -> StepDraws:
         """One step's random inputs, drawn slot by slot in a fixed order.
@@ -302,17 +526,103 @@ class SJDEngine:
                         if speculative and not greedy else None),
         )
 
-    def _step(self, params, st: EngineState) -> EngineState:
-        """One decode step over the configured window."""
+    def _draw_buffers(self, batch: int) -> StepDraws:
+        """A captured graph's inputs: tensors of the shapes _draws returns."""
+        W, V, dev = self.config.window, self.model.vocab_size, self.device
+        greedy = self.sampling.greedy
+        speculative = self.config.scheme == "speculative_jacobi"
+        f32 = dict(dtype=torch.float32, device=dev)
+        return StepDraws(
+            rand=torch.zeros((batch, W - 1), dtype=torch.int32, device=dev),
+            gumbel_tok=None if greedy else torch.zeros((batch, W, V), **f32),
+            u=torch.zeros((batch, W - 1), **f32) if speculative else None,
+            gumbel_res=torch.zeros((batch, V), **f32) if speculative and not greedy else None,
+        )
+
+    def _run(self, params, st: EngineState, cap: int) -> None:
+        """Decode steps while a slot is live and the NFE is under ``cap``
+        (the JAX while_loop's condition, checked on the host)."""
+        self._check_own(st)
+        graph = self.cuda_graph and st.tokens.is_cuda
+        while st.nfe < cap and not bool(st.finished.all()):
+            if graph:
+                self._graph_step(params, st)
+            else:
+                self._step(params, st)
+                self.stats.eager_steps += 1
+
+    def _check_own(self, st: EngineState) -> None:
+        if st is not self._state:
+            raise ValueError("this state is no longer the engine's own: a later generate() "
+                             "replaced it (keep only the returned state)")
+
+    def _step(self, params, st: EngineState) -> None:
+        """One eager decode step."""
+        self._step_into(params, st, self._draws(st))
+        st.nfe += 1
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return self._stream
+
+    def _graph_step(self, params, st: EngineState) -> None:
+        """One decode step on CUDA: the warm-up step of a new state eagerly,
+        else a replay of the step's graph (captured first if needed)."""
+        entry = self._graph
+        if entry is None or entry.params is not params:
+            if not self._warm:
+                side, main = self._side_stream(), torch.cuda.current_stream()
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    self._step(params, st)
+                main.wait_stream(side)
+                self._warm = True
+                self.stats.eager_steps += 1
+                return
+            entry = self._capture(params, st)
+        for buf, new in zip(entry.draws, self._draws(st)):
+            if buf is not None:
+                buf.copy_(new)
+        entry.graph.replay()
+        st.nfe += 1
+        self.stats.replays += 1
+        _add(self.stats.replayed_launches, entry.launches)
+
+    def _capture(self, params, st: EngineState) -> _Graph:
+        """Capture one decode step over ``st``'s tensors as a CUDA graph. The
+        capture records and does not run: ``st`` is not advanced."""
+        from ..ops import launch_counts
+
+        self._graph = None  # a new params object: release the old graph
+        draws = self._draw_buffers(st.tokens.shape[0])
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._side_stream()):
+            self._step_into(params, st, draws)
+        torch.cuda.synchronize()
+        self.stats.capture_s += time.perf_counter() - t0
+        launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
+        self.stats.captures += 1
+        _add(self.stats.captured_launches, launches)
+        entry = _Graph(graph, params, draws, launches)
+        self._graph = entry
+        return entry
+
+    def _step_into(self, params, st: EngineState, draws: StepDraws) -> None:
+        """One decode step over the configured window, written in place into
+        ``st``'s tensors (``st.nfe`` is the caller's). Nothing here reads a
+        device value on the host, so the step can be captured."""
         cfg = self.config
         spec = self.spec
         dev = self.device
-        B = st.tokens.shape[0]
         W = cfg.window
         V = self.model.vocab_size
         greedy = self.sampling.greedy
         speculative = cfg.scheme == "speculative_jacobi"
-        rand, g_tok, u, g_res = self._draws(st)
+        rand, g_tok, u, g_res = draws
+        B = st.tokens.shape[0]
 
         real_len = st.length - st.n_pad[:B]
         lo_i = st.prompt_len + cfg.interval_l
@@ -330,7 +640,7 @@ class SJDEngine:
 
         i = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
         positions = (self._tile(st.length)[:, None] - 1 - st.n_pad[:, None]) + i
-        logits, kv = self.model.forward(
+        logits, _ = self.model.forward(
             params, self._tile(win.x), positions.to(torch.int32), st.kv,
             self._tile(st.length - 1).to(torch.int32), st.valid, logits_tail=None)
 
@@ -360,13 +670,13 @@ class SJDEngine:
 
         n_eff = torch.where(st.finished, 0, res.n).to(torch.int32)
         live = (~st.finished).to(torch.int32)
-        hist_inc = (F.one_hot(n_eff.long(), W + 1).to(torch.int32) * live[:, None]).sum(0)
+        hist_inc = (sampling_lib.onehot_probs(n_eff, W + 1).to(torch.int32)
+                    * live[:, None]).sum(0)
 
-        # commit: write the whole window at each sample's length (slots past
-        # n are overwritten by later commits); the finish guard below keeps
-        # every write inside the buffer
+        # commit: the whole window at each sample's length (slots past n are
+        # overwritten by later commits); the finish guard below keeps every
+        # write inside the buffer
         cols = st.length.long()[:, None] + torch.arange(W, device=dev)[None, :]
-        tokens = st.tokens.scatter(1, cols, res.out_tokens)
         length = st.length + n_eff
         gstate = grammar_lib.update_state(spec, st.gstate, res.out_tokens, n_eff)
         last_prob = acceptance_lib._gather_rows(res.out_probs, res.n - 1)
@@ -374,21 +684,20 @@ class SJDEngine:
 
         committed_live = i < n_eff[:, None]
         hit_eos = torch.any(committed_live & (res.out_tokens == cfg.eos_id), dim=1)
-        L_buf = st.tokens.shape[1]
         gen_len = real_len - st.prompt_len
-        out_of_room = (gen_len + n_eff >= cfg.max_len) | (length > L_buf - 2 * W)
-        return dataclasses.replace(
-            st,
-            tokens=tokens,
-            length=length,
-            kv=kv,
-            carried_tokens=res.carried_tokens,
-            carried_probs=res.carried_probs,
-            carried_count=carried_count,
-            last_prob=last_prob,
-            gstate=gstate,
-            finished=st.finished | hit_eos | out_of_room,
-            nfe=st.nfe + 1,
-            steps_multi=st.steps_multi + torch.any(active_w > 1).to(torch.int32),
-            accept_hist=st.accept_hist + hist_inc,
-        )
+        out_of_room = (gen_len + n_eff >= cfg.max_len) | (length > st.tokens.shape[1] - 2 * W)
+        finished = st.finished | hit_eos | out_of_room
+        multi = torch.any(active_w > 1).to(torch.int32)
+
+        # every input is read: write the step's results into the state
+        st.tokens.scatter_(1, cols, res.out_tokens)
+        st.length.copy_(length)
+        st.carried_tokens.copy_(res.carried_tokens)
+        st.carried_probs.copy_(res.carried_probs)
+        st.carried_count.copy_(carried_count)
+        st.last_prob.copy_(last_prob)
+        for dst, src in zip(st.gstate, gstate):
+            dst.copy_(src)
+        st.finished.copy_(finished)
+        st.steps_multi.add_(multi)
+        st.accept_hist.add_(hist_inc)

@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 
 Tensor = torch.Tensor
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -81,5 +80,8 @@ def top_k_dual(scores: Tensor, image_mode: Tensor, image_top_k: int,
 
 
 def onehot_probs(tokens: Tensor, vocab_size: int) -> Tensor:
-    """One-hot 'distribution' at each token (fresh drafts' draft dist)."""
-    return F.one_hot(tokens.long(), vocab_size).float()
+    """One-hot 'distribution' at each token (fresh drafts' draft dist). A
+    comparison rather than ``F.one_hot``, which checks the ids' range on the
+    host on some devices: the decode step must never wait on the device."""
+    vocab = torch.arange(vocab_size, device=tokens.device)
+    return (tokens.long()[..., None] == vocab).float()

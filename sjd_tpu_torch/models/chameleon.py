@@ -77,6 +77,7 @@ def lumina_engine(
     kv_quant: bool = True,
     model_cfg: Optional[DecoderConfig] = None,  # overrides the size registry;
     # must keep the FlexAR vocab layout
+    cuda_graph: bool = True,  # SJDEngine's: replay a captured step on CUDA
     device=None,
 ) -> SJDEngine:
     dev = resolve_device(device)
@@ -98,6 +99,6 @@ def lumina_engine(
         guidance_scale=guidance_scale, do_cfg=True, image_top_k=image_top_k,
         text_top_k=text_top_k, temperature=temperature, greedy=greedy,
     )
-    engine = SJDEngine(model, econfig, LUMINA_GRAMMAR, sampling)
+    engine = SJDEngine(model, econfig, LUMINA_GRAMMAR, sampling, cuda_graph=cuda_graph)
     engine.model_cfg = cfg
     return engine

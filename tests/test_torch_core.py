@@ -8,6 +8,7 @@ tests/test_acceptance.py:103 with the port's own generator."""
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -191,3 +192,74 @@ def test_speculative_distribution_is_unbiased():
         lambda logits, row: ps.sample_from_logits(g, logits))
     counts = np.bincount(res.out_tokens[:, 0].numpy(), minlength=vocab) / trials
     np.testing.assert_allclose(counts, p_new_row.numpy(), atol=0.035)
+
+
+class _NoHostReads(TorchDispatchMode):
+    """Fails on the ops that hand a device value to the host (.item(),
+    bool(), boolean-mask indexing): a CUDA-graph capture of code that runs
+    one fails, and eager code syncs on it."""
+
+    _READS = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.nonzero.default,
+              torch.ops.aten.masked_select.default}
+    _INDEXING = {torch.ops.aten.index.Tensor, torch.ops.aten.index_put_.default,
+                 torch.ops.aten.index_put.default}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self._READS:
+            raise AssertionError(f"the step reads a device value on the host: {func}")
+        if func in self._INDEXING and any(
+                t is not None and t.dtype == torch.bool for t in args[1]):
+            raise AssertionError(f"the step indexes with a boolean mask: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("scheme,init,greedy,cfg_mode", [
+    ("speculative_jacobi", "random", False, "none"),
+    ("speculative_jacobi", "repeat_horizon", False, "neg_prompt"),
+    ("jacobi", "random", True, "none"),
+])
+def test_step_writes_in_place_and_reads_nothing_on_the_host(scheme, init, greedy, cfg_mode):
+    """The decode step the engine captures as a CUDA graph: it writes its
+    results into the state's own tensors (no field is rebound, no address
+    moves), advances what a step advances, and never reads a device value
+    on the host, which is what lets it be captured."""
+    import dataclasses
+
+    from helpers import TINY, tiny_params
+    from sjd_tpu_torch.convert import decoder_config_from_jax, params_from_jax
+    from sjd_tpu_torch.core.engine import EngineConfig, SJDEngine
+    from sjd_tpu_torch.core.processors import SamplingParams
+    from sjd_tpu_torch.models.adapter import decoder_model_fns
+
+    cfg = decoder_config_from_jax(TINY)
+    params = params_from_jax(jax.tree.map(np.asarray, tiny_params()), cfg, device="cpu")
+    eng = SJDEngine(
+        decoder_model_fns(cfg, max_positions=512, device="cpu"),
+        EngineConfig(window=5, scheme=scheme, init=init, max_len=64, cfg_mode=cfg_mode),
+        PSPEC, SamplingParams(do_cfg=cfg_mode != "none", guidance_scale=2.0,
+                              image_top_k=44, text_top_k=60, greedy=greedy))
+    prompt = torch.tensor([[1, 2, 48, 54, 54], [0, 3, 48, 53, 53]])
+    neg = torch.tensor([[7, 48, 54, 54], [7, 48, 53, 53]]) if cfg_mode != "none" else None
+    _, st = eng.generate(params, 0, prompt, neg_prompt=neg, max_steps=3, return_state=True)
+
+    def tensors(s):
+        out = {}
+        for f in dataclasses.fields(s):
+            v = getattr(s, f.name)
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                if isinstance(t, torch.Tensor):
+                    out[(f.name, i)] = t
+        return out
+
+    before = {k: (t, t.data_ptr(), t.clone()) for k, t in tensors(st).items()}
+    draws = eng._draws(st)
+    with torch.no_grad(), _NoHostReads():
+        eng._step_into(params, st, draws)
+    after = tensors(st)
+    assert after.keys() == before.keys()
+    for k, (t, ptr, _) in before.items():
+        assert after[k] is t and t.data_ptr() == ptr, k
+    changed = {k[0] for k, (t, _, old) in before.items() if not torch.equal(t, old)}
+    assert {"tokens", "length", "kv", "accept_hist"} <= changed
+    assert not changed & {"n_pad", "valid", "prompt_len"}
+    assert int(st.accept_hist.sum() - before[("accept_hist", 0)][2].sum()) == 2

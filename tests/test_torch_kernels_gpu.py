@@ -239,3 +239,113 @@ def test_forward_kernel_path_matches_plain_path(cuda):
                                rope).logits)
     err = (outs[0] - outs[1]).abs().max().item()
     assert err <= 0.05 * outs[1].abs().max().item(), err
+
+
+# -- the engine's captured decode step --------------------------------------
+
+
+def _small_lumina(cuda, cuda_graph):
+    """A 2-layer decoder with 128-wide heads and an int8 cache behind the
+    Lumina engine (grammar, CFG, window 16) at a 128px grid, and its
+    15-token prompt."""
+    from sjd_tpu_torch.data.item_processor import size_token_id
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.chameleon import IMAGE_START_ID, lumina_engine
+
+    cfg = pt.DecoderConfig(vocab_size=65536, hidden_size=512, intermediate_size=1024,
+                           num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                           qk_norm=True, kv_quant=True, max_position_embeddings=1024)
+    eng = lumina_engine(model_cfg=cfg, target_size=128, cuda_graph=cuda_graph, device=cuda)
+    header = [IMAGE_START_ID, size_token_id(128), size_token_id(128)]
+    return eng, list(range(9000, 9012)) + header
+
+
+def _params(cuda, eng):
+    from sjd_tpu_torch.models import transformer as pt
+
+    return pt.init_params(0, eng.model_cfg, device=cuda)
+
+
+def test_graph_path_equals_eager_path(cuda):
+    """24 decode steps through the captured graph (a warm-up step, then 23
+    replays) against 24 eager steps from the same seed: tokens, lengths,
+    NFE, accept_hist and every byte of the KV cache are equal."""
+    states = {}
+    for graph in (False, True):
+        eng, prompt = _small_lumina(cuda, graph)
+        params = _params(cuda, eng)
+        ids = torch.tensor([prompt, prompt[3:] + prompt[:3]], device=cuda)
+        _, states[graph] = eng.generate(params, 0, ids, max_steps=25, return_state=True)
+        if graph:
+            assert (eng.stats.captures, eng.stats.replays, eng.stats.eager_steps) == (1, 23, 1)
+        else:
+            assert eng.stats.captures == 0 and eng.stats.eager_steps == 24
+    eager, graph = states[False], states[True]
+    assert eager.nfe == graph.nfe == 25
+    for name in ("tokens", "length", "accept_hist", "steps_multi", "carried_tokens",
+                 "finished"):
+        assert torch.equal(getattr(eager, name), getattr(graph, name)), name
+    for a, b in zip(eager.kv, graph.kv):
+        assert torch.equal(a, b), "KV cache bytes differ"
+
+
+def test_refill_under_graph_keeps_live_slot_and_does_not_recapture(cuda):
+    eng, prompt = _small_lumina(cuda, True)
+    params = _params(cuda, eng)
+    ids = torch.tensor([prompt, prompt[1:] + prompt[:1]], device=cuda)
+    want = eng.generate(params, 3, ids, max_steps=25)  # 24 decode steps, no refill
+    _, state = eng.generate(params, 3, ids, max_steps=13, return_state=True)
+    captures = eng.stats.captures
+    fresh = torch.tensor([prompt[2:] + prompt[:2]] * 2, device=cuda)
+    state = eng.refill(params, state, fresh, [True, False])
+    assert state.nfe == 14
+    _, state = eng.resume(params, state, max_steps=12, return_state=True)
+    assert eng.stats.captures == captures == 1
+    n = int(want.length[1])
+    assert int(state.length[1]) == n
+    assert torch.equal(state.tokens[1, :n], want.tokens[1, :n])
+    assert int(state.length[0]) > len(prompt) + 1  # the refilled slot decodes on
+
+
+def test_second_generate_replays_the_cached_graph(cuda):
+    eng, prompt = _small_lumina(cuda, True)
+    params = _params(cuda, eng)
+    ids = torch.tensor([prompt], device=cuda)
+    first = eng.generate(params, 5, ids, max_steps=12)
+    second = eng.generate(params, 5, ids, max_steps=12)
+    assert eng.stats.captures == 1 and eng.stats.eager_steps == 1
+    assert eng.stats.replays == 10 + 11  # warm-up, then replays; then replays only
+    assert torch.equal(first.tokens, second.tokens) and first.nfe == second.nfe == 12
+
+
+def test_new_prompt_width_releases_the_old_state_and_graph(cuda):
+    """One state and one graph per engine: another prompt width warms up and
+    captures anew over a new state, and the old state can no longer be
+    resumed."""
+    eng, prompt = _small_lumina(cuda, True)
+    params = _params(cuda, eng)
+    _, old = eng.generate(params, 5, torch.tensor([prompt], device=cuda), max_steps=4,
+                          return_state=True)
+    _, new = eng.generate(params, 5, torch.tensor([[0, 0] + prompt], device=cuda),
+                          prompt_mask=torch.tensor([[False, False] + [True] * len(prompt)],
+                                                   device=cuda),
+                          max_steps=4, return_state=True)
+    assert eng._state is new and new.tokens.shape[1] == old.tokens.shape[1] + 2
+    assert (eng.stats.captures, eng.stats.eager_steps, eng.stats.replays) == (2, 2, 4)
+    with pytest.raises(ValueError, match="no longer the engine's own"):
+        eng.resume(params, old, max_steps=1)
+
+
+def test_executed_launches_are_layers_times_forwards(cuda):
+    """Each kernel runs once per layer per forward; the capture's recorded
+    launches are taken out and each replay's put in (GraphStats.executed)."""
+    from sjd_tpu_torch.ops import launch_counts
+
+    eng, prompt = _small_lumina(cuda, True)
+    params = _params(cuda, eng)
+    before = launch_counts()
+    res = eng.generate(params, 0, torch.tensor([prompt], device=cuda), max_steps=20)
+    counted = {k: n - before[k] for k, n in launch_counts().items()}
+    executed = eng.stats.executed(counted)
+    assert eng.stats.captured_launches == {"fused_epilogue": 2, "decode_attention": 2}
+    assert executed == {k: eng.model_cfg.num_layers * res.nfe for k in counted}
