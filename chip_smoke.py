@@ -33,14 +33,34 @@ Phases, one line of output each (JSON where it carries numbers):
                per-request seeds, chunks of 64 steps; each result decodes
                to an image, a refill happens while a request is live, and
                that request's tokens equal those of an eager run with the
-               same companion and no refill.
+               same companion and no refill;
+  9. widths_bf16 - one request through ContinuousBatcher at batch widths 1,
+               2 and 5 (256px): whether its tokens change, reported;
 
-Each of the paths 6-8 starts from kernel launch counts of 0 and reads them
-just after. A wrapper counts a launch when Python calls it, so a capture
-counts the launches it records and a replay none; the launches that ran
-are the counters minus the capture's records plus each replay's
-(GraphStats.executed, which phase 6's profile holds to the device's
-trace). They must be 32 per forward with T <= 32 for each kernel.
+and the quantized weights (csrc/quant_linear.cu):
+
+  3b. quant_kernels - K1 (W4A16/W8A16) and K2 (W4A8/W8A8) against their
+               plain versions at the 7B's four weight shapes and the rows
+               of a generate window (32), a serve window (64) and a prefill
+               (30), with their times, bounds and library yardsticks;
+  4b. quant_forward - phase 4's decoder on W4A16 and W4A8 weights;
+  10. quant_serve - W4A8 with the int8 embedding, quantized on the card from
+               phase 5's bf16 weights: phase 6's check (32 replayed steps
+               bit-equal to 32 eager ones, launches, profile);
+  11. quant_load, quant_graph, quant_generate - load_lumina_mgpt(quantize=4)
+               (W4A16, int8 head), phase 6's check and one 768px image,
+               with the weights' bytes at rest and peak memory;
+  12. widths_w4a16 - phase 9 on W4A16 weights, held: the tokens must not
+               change with the width.
+
+Each of the paths 6-8, 10-11 starts from kernel launch counts of 0 and
+reads them just after. A wrapper counts a launch when Python calls it, so a
+capture counts the launches it records and a replay none; the launches that
+ran are the counters minus the capture's records plus each replay's
+(GraphStats.executed, which each graph check's profile holds to the
+device's trace). They must be per_forward()'s per forward with T <= 32: 32
+of each TPU kernel, and on quantized weights 225 quantized products (7 per
+layer and the head).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failed phase raises
@@ -50,6 +70,8 @@ non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -61,9 +83,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor cores
+INT8_TENSOR_OPS = 1979e12  # dense int8 tensor cores
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 TARGET_SIZE = 768
-KERNEL_NAMES = ("fused_epilogue", "decode_attention")
+SOURCES = ("fused_epilogue", "decode_attention", "quant_linear")  # csrc/<name>.cu
 
 
 def emit(phase: str, **fields) -> None:
@@ -145,8 +168,8 @@ def phase_build():
     from sjd_tpu_torch.ops import _build
 
     t0 = time.time()
-    logs = _build.build_all(KERNEL_NAMES)
-    for name in KERNEL_NAMES:
+    logs = _build.build_all(SOURCES)
+    for name in SOURCES:
         _build.load(name)
     usage = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
@@ -359,33 +382,168 @@ def phase_attention(dev):
                 bound_by=main["bound_by"], library_ms=main["library_ms"])
 
 
-def phase_forward(dev):
-    import dataclasses
+# the 7B's quantized weights (N, K): the attention projections, the MLP's
+# gate/up and down projections, the head
+QUANT_SHAPES = {"wq": (4096, 4096), "w_gate": (11008, 4096), "w_down": (4096, 11008),
+                "lm_head": (65536, 4096)}
+# rows: a decode window of the generate path (S = 2, W = 16) and of the
+# serve path (S = 4), and the generate path's prefill (2 x 15 prompt rows)
+QUANT_ROWS = {"generate": 32, "serve": 64, "prefill": 30}
+L2_BYTES = 50 * 2 ** 20  # the H100's L2
 
+
+def _copies(t):
+    """An endless cycle over ``t`` and enough copies of it that twelve
+    consecutive calls (``_quant_case``'s timing) read over twice the L2."""
+    import itertools
+
+    n = min(12, math.ceil(2 * L2_BYTES / (t.numel() * t.element_size())))
+    return itertools.cycle([t] + [t.clone() for _ in range(n - 1)])
+
+
+def _quant_case(dev, weight: str, bits: int, a8: bool, case: str, seed: int):
+    """One quantized product against its plain version at one of the 7B's
+    weight shapes: A16 within one bf16 rounding of the largest output plus
+    f32 reassociation, A8 bit-equal. Times the kernel (graph and eager), the
+    plain version, and the library yardsticks (never called by the port):
+    bf16 F.linear on the dequantized weight, torch._int_mm for W8A8 and
+    torch.ops.aten._weight_int8pack_mm for W8A16 where they run."""
+    import torch
+    import torch.nn.functional as F
+
+    from sjd_tpu_torch.models.transformer import _quantize_act, quantize_int4, quantize_int8
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    (N, K), M = QUANT_SHAPES[weight], QUANT_ROWS[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((N, K), generator=g, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    leaf = quantize_int4(w) if bits == 4 else quantize_int8(w)
+    q, s = leaf["q4p" if bits == 4 else "q"], leaf["s"]
+    del w
+    # the forward reads each weight once, from HBM: every timed call below
+    # takes the next of enough copies of its weight to overflow the L2
+    qs = _copies(q)
+    if a8:
+        xq, xs = _quantize_act(x)
+        call = lambda: ql.quant_linear_a8(xq, xs, next(qs), s, bits=bits)  # noqa: E731
+        plain = lambda: ql.quant_linear_a8_plain(xq, xs, q, s, bits=bits)  # noqa: E731
+    else:
+        call = lambda: ql.quant_linear_a16(x, next(qs), s, bits=bits)  # noqa: E731
+        plain = lambda: ql.quant_linear_a16_plain(x, q, s, bits=bits)  # noqa: E731
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 0.0 if a8 else 2 ** -7 * want.float().abs().max().item() + 1e-3
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+    ms, call_ms = time_ms(call, reps=12, trials=7), eager_ms(call, reps=12, trials=7)
+    plain_ms = time_ms(plain, reps=2, trials=3)
+    codes = ql.unpack_int4(q) if bits == 4 else q
+    # the bf16 yardstick's weight
+    wds = _copies((codes.float() * s.float()[:, None]).to(torch.bfloat16))
+    library = {"F.linear_bf16": time_ms(lambda: F.linear(x, next(wds)), reps=12, trials=7)}
+    if a8 and bits == 8:
+        try:
+            qts = _copies(q.t())
+            library["torch._int_mm"] = time_ms(lambda: torch._int_mm(xq, next(qts)), reps=12,
+                                               trials=7)
+        except RuntimeError as e:  # a yardstick that does not run here is reported
+            library["torch._int_mm"] = f"does not run: {str(e).splitlines()[0][:120]}"
+    if not a8 and bits == 8:
+        try:
+            library["aten._weight_int8pack_mm"] = time_ms(
+                lambda: torch.ops.aten._weight_int8pack_mm(x, next(qs), s), reps=12, trials=7)
+        except RuntimeError as e:
+            library["aten._weight_int8pack_mm"] = f"does not run: {str(e).splitlines()[0][:120]}"
+    del wds, qs, codes
+    # each input read once, each output written once
+    wbytes = q.numel() + 2 * N
+    xbytes = M * K + 4 * M if a8 else 2 * M * K
+    n_bytes = wbytes + xbytes + 2 * M * N
+    b_ms, b_by = bound_ms(n_bytes, 2 * M * N * K, INT8_TENSOR_OPS if a8 else BF16_TENSOR_FLOPS)
+    row = dict(name="quant_linear_a8" if a8 else "quant_linear_a16", weight=weight, bits=bits,
+               case=case, shape=dict(M=M, N=N, K=K), splits=ql.splits(N, K, bits),
+               max_abs_err=err, tolerance=tol, ok=ok, ms=ms, eager_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+               bytes=n_bytes, library_ms=library)
+    emit("quant_kernel", **row)
+    check(ok, f"{row['name']} (int{bits}, {weight}, {case}) disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_quant_kernels(dev):
+    """K1 at bits 4 on the projections and bits 8 on the projections and the
+    head; K2 the same; each at the generate and serve windows' rows and the
+    generate prefill's. Returns the kernels' JSON rows, whose numbers are
+    the main case's: the 4096 x 4096 projection, int4, at the generate
+    window."""
+    rows = []
+    seed = 10
+    for a8 in (False, True):
+        for bits in (4, 8):
+            for weight in QUANT_SHAPES:
+                if weight == "lm_head" and bits == 4:
+                    continue  # the loaders quantize the head to int8
+                for case in QUANT_ROWS:
+                    seed += 1
+                    rows.append(_quant_case(dev, weight, bits, a8, case, seed))
+    out = []
+    for name, line in (("quant_linear_a16", 478), ("quant_linear_a8", 484)):
+        mine = [r for r in rows if r["name"] == name]
+        main = next(r for r in mine if r["weight"] == "wq" and r["bits"] == 4
+                    and r["case"] == "generate")
+        out.append(dict(name=name, route="cuda", source="sjd_tpu_torch/csrc/quant_linear.cu",
+                        replaces=f"sjd_tpu/models/transformer.py:{line}",
+                        max_abs_err=max(r["max_abs_err"] for r in mine), ms=main["ms"],
+                        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                        bound_by=main["bound_by"],
+                        library_ms=main["library_ms"]["F.linear_bf16"]))
+    return out
+
+
+def _forward_pair(dev, cfg, params):
+    """A 15-token prefill and a 16-row window of a small decoder through the
+    kernels and through attn_impl="plain": the two windows' logits, and the
+    quantized products the kernel path launched."""
     import torch
 
     from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.ops import launch_counts
 
-    cfg = pt.DecoderConfig(vocab_size=65536, hidden_size=512, intermediate_size=1024,
-                           num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
-                           qk_norm=True, kv_quant=True, max_position_embeddings=512)
-    params = pt.init_params(0, cfg, device=dev)
     rope = pt.make_rope_table(cfg, 512, device=dev)
     S, P, W, L = 2, 15, 16, 512
     gen = torch.Generator(device=dev).manual_seed(2)
-    ids = torch.randint(0, 65536, (S, P + W), generator=gen, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (S, P + W), generator=gen, device=dev)
     valid = torch.ones((S, L), dtype=torch.bool, device=dev)
     valid[1, :P - 1] = False
     pos = torch.clamp_min(torch.cumsum(valid[:, :P].int(), 1) - 1, 0)
     pos_w = pos[:, -1:] + 1 + torch.arange(W, device=dev)
-    logits = []
+    logits, launched = [], {}
     with torch.no_grad():
         for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
+            before = launch_counts()
             kv = pt.init_kv_cache(c, S, L, device=dev)
             zero = torch.zeros((S,), dtype=torch.int32, device=dev)
             pt.forward(params, c, ids[:, :P], pos, kv, zero, valid, rope)
             logits.append(pt.forward(params, c, ids[:, P:], pos_w, kv, zero + P, valid,
                                      rope).logits)
+            launched[c.attn_impl] = {k: n - before[k] for k, n in launch_counts().items()}
+    return logits, launched
+
+
+def _small_decoder(dev, **kw):
+    from sjd_tpu_torch.models import transformer as pt
+
+    cfg = pt.DecoderConfig(vocab_size=65536, hidden_size=512, intermediate_size=1024,
+                           num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                           qk_norm=True, kv_quant=True, max_position_embeddings=512, **kw)
+    return cfg, pt.init_params(0, cfg, device=dev)
+
+
+def phase_forward(dev):
+    cfg, params = _small_decoder(dev)
+    logits, _ = _forward_pair(dev, cfg, params)
     err = (logits[0] - logits[1]).abs().max().item()
     scale = logits[1].abs().max().item()
     # tolerance: bf16 activations round at other points once the attention
@@ -396,24 +554,100 @@ def phase_forward(dev):
     check(ok, "kernel forward disagrees with the plain forward")
 
 
+def phase_quant_forward(dev):
+    """phase_forward's decoder on equilibrated W4A16 and W4A8 weights (int8
+    head): the kernel forward (both TPU kernels and the quantized products)
+    against the plain forward (plain attention, plain products)."""
+    from sjd_tpu_torch.models import transformer as pt
+
+    for act, kernel in (("bf16", "quant_linear_a16"), ("int8", "quant_linear_a8")):
+        cfg, params = _small_decoder(dev, act_quant=act)
+        params = pt.quantize_weights(params, bits=4, head_bits=8, config=cfg)
+        logits, launched = _forward_pair(dev, cfg, params)
+        err = (logits[0] - logits[1]).abs().max().item()
+        scale = logits[1].abs().max().item()
+        # the same 5% as phase_forward: the products sum in another order
+        # too (and under W4A8 an activation code may move by one)
+        ok = math.isfinite(err) and err <= 0.05 * scale
+        want = 2 * (7 * cfg.num_layers + 1)  # two forwards: 7 products per layer, the head
+        emit("quant_forward", act_quant=act, bits=4, layers=cfg.num_layers, max_abs_err=err,
+             max_abs_logit=scale, tolerance=0.05 * scale, ok=ok, launches=launched,
+             launches_expected={kernel: want})
+        check(ok, f"W4 {act} kernel forward disagrees with the plain forward")
+        check(launched["auto"][kernel] == want and launched["plain"][kernel] == 0,
+              f"{kernel}: launches {launched}, not {want} on the kernel path and 0 on the "
+              "plain one")
+
+
 PROMPT = "a photo of a red fox in the snow"
 
 
-def phase_load(dev):
+def phase_load(dev, quantize=False, label: str = "load"):
+    """Lumina-mGPT-7B through load_lumina_mgpt at full width and depth, in
+    bf16 or with ``quantize``'s weights (drawn and quantized leaf by leaf on
+    the card)."""
     import torch
 
     from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.models.transformer import weight_bytes
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    model = load_lumina_mgpt(target_size=TARGET_SIZE, device=dev)
+    model = load_lumina_mgpt(target_size=TARGET_SIZE, quantize=quantize, device=dev)
     torch.cuda.synchronize()
     cfg = model.engine.model_cfg
-    emit("load", seconds=time.time() - t0, layers=cfg.num_layers, hidden=cfg.hidden_size,
-         vocab=cfg.vocab_size, kv_quant=cfg.kv_quant,
+    wq = model.params["layers"]["wq"]
+    emit(label, seconds=time.time() - t0, quantize=quantize, act_quant=cfg.act_quant,
+         layers=cfg.num_layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+         kv_quant=cfg.kv_quant, weight_bytes=weight_bytes(model.params),
+         wq_leaf=sorted(wq) if isinstance(wq, dict) else str(wq.dtype),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          smoke_reasons=model.extras["smoke_reasons"])
     check((cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.kv_quant)
           == (32, 4096, 65536, True), f"not the 7B config: {cfg}")
+    if quantize:
+        check(isinstance(wq, dict) and isinstance(model.params["lm_head"], dict)
+              and "q" in model.params["lm_head"], "the quantized load kept bf16 weights")
     return model
+
+
+def phase_widths(dev, params, cfg, label: str, hold: bool, size: int = 256,
+                 chunk_steps: int = 64):
+    """The same request (prompt and seed) through ContinuousBatcher at batch
+    widths 1, 2 and 5, with companions of the same prompt length: its tokens
+    must not change with the width when ``hold`` (the quantized path, whose
+    products sum in an order fixed by the weight's shape); on bf16 weights,
+    where cuBLAS picks its kernels by the row count, the result is
+    reported."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.serving import ContinuousBatcher
+    from sjd_tpu_torch.data.item_processor import size_token_id
+    from sjd_tpu_torch.models.chameleon import IMAGE_END_ID, IMAGE_START_ID, lumina_engine
+
+    rng = np.random.default_rng(11)
+    header = [IMAGE_START_ID, size_token_id(size), size_token_id(size)]
+    prompts = np.asarray([list(map(int, rng.integers(9000, 13000, 12))) + header
+                          for _ in range(5)], np.int32)
+    seeds = [401, 402, 403, 404, 405]
+    eng = lumina_engine(target_size=size, model_cfg=cfg, device=dev)
+    eng.config = dataclasses.replace(eng.config, eos_id=IMAGE_END_ID)
+    tokens, nfe = {}, {}
+    t0 = time.time()
+    for width in (1, 2, 5):
+        batcher = ContinuousBatcher(eng, params, chunk_steps=chunk_steps)
+        done = batcher.run(None, prompts[:width], batch=width, seeds=seeds[:width])
+        tokens[width] = done[0].tokens
+        nfe[width] = batcher.last_nfe
+    same = {w: bool(np.array_equal(tokens[w], tokens[1])) for w in (2, 5)}
+    emit(label, act_quant=cfg.act_quant, quantized=isinstance(params["layers"]["wq"], dict),
+         size=size, widths=[1, 2, 5], request_tokens=len(tokens[1]), nfe=nfe,
+         equal_to_width_1=same, held=hold, seconds=time.time() - t0)
+    if hold:
+        check(all(same.values()), f"the request's tokens change with the batch width: {same}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def _state_diff(a, b):
@@ -433,15 +667,36 @@ def _state_diff(a, b):
 def _zero_launch_counts() -> None:
     from sjd_tpu_torch.ops.decode_attention import decode_attention
     from sjd_tpu_torch.ops.fused_epilogue import fused_epilogue_into_cache, write_kv_layer
+    from sjd_tpu_torch.ops.quant_linear import quant_linear_a8, quant_linear_a16
 
     fused_epilogue_into_cache.launches = 0
     decode_attention.launches = 0
+    quant_linear_a16.launches = 0
+    quant_linear_a8.launches = 0
     write_kv_layer.calls = 0
 
 
-# the kernels' symbols as the profiler names them (csrc/*.cu): the
-# epilogue's, and the attention's split and merge kernels
-KERNEL_SYMBOLS = ("::epilogue_kernel<", "::flash_decode_split_kernel<", "::merge_splits_kernel<")
+def per_forward(params, cfg) -> dict:
+    """Each kernel's launches in one forward of T <= 32 rows: each TPU
+    kernel once per layer; on quantized weights, one quantized product per
+    projection (7 per layer) and one for a quantized head, through K1
+    (act_quant "bf16") or K2 ("int8")."""
+    n_quant = (7 * cfg.num_layers * isinstance(params["layers"]["wq"], dict)
+               + isinstance(params.get("lm_head"), dict))
+    a8 = cfg.act_quant == "int8"
+    return {"fused_epilogue": cfg.num_layers, "decode_attention": cfg.num_layers,
+            "quant_linear_a16": 0 if a8 else n_quant, "quant_linear_a8": n_quant if a8 else 0}
+
+
+# the kernels' symbols as the profiler names them (csrc/*.cu), with the
+# launch table's entry each counts once per launch: the epilogue's, the
+# attention's split and merge kernels, the quantized products' main kernel
+# (its split-reducing kernel runs for some shapes only and is reported)
+KERNEL_SYMBOLS = {"::epilogue_kernel<": "fused_epilogue",
+                  "::flash_decode_split_kernel<": "decode_attention",
+                  "::merge_splits_kernel<": "decode_attention",
+                  "::quant_linear_kernel<": ("quant_linear_a16", "quant_linear_a8"),
+                  "::reduce_splits_kernel<": None}
 
 
 def _profiled_launches(run) -> dict:
@@ -463,63 +718,64 @@ def _profiled_launches(run) -> dict:
     return seen
 
 
-def phase_graph(dev, model, steps: int = 32, profiled_steps: int = 2):
+def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int = 32,
+                profiled_steps: int = 2):
     """The captured decode step against the eager one on the 7B: the same
     seed and calls, ``steps`` timed decode steps each after one untimed
     step (on the graph engine: replays of a graph captured beforehand).
     Each engine's run starts from launch counts of 0; the launches that ran
-    must be 32 per forward on both. Then ``profiled_steps`` more replays
-    under torch.profiler: each must run each kernel 32 times on the device,
-    which is what GraphStats.executed assumes of a replay."""
+    must be :func:`per_forward`'s per forward on both. Then
+    ``profiled_steps`` more replays under torch.profiler: each must run each
+    kernel as often on the device, which is what GraphStats.executed
+    assumes of a replay."""
     import torch
 
     from sjd_tpu_torch.models.chameleon import lumina_engine
     from sjd_tpu_torch.ops import launch_counts
 
-    ids = torch.tensor([model.extras["prompt_ids_fn"](PROMPT)], dtype=torch.int32,
-                       device=dev)
-    layers = model.engine.model_cfg.num_layers
+    ids = torch.tensor([prompt_ids], dtype=torch.int32, device=dev)
+    table = per_forward(params, cfg)
     runs, launched = {}, {}
     for graph in (False, True):
-        eng = lumina_engine(target_size=TARGET_SIZE, cuda_graph=graph,
-                            model_cfg=model.engine.model_cfg, device=dev)
+        eng = lumina_engine(target_size=TARGET_SIZE, cuda_graph=graph, model_cfg=cfg,
+                            device=dev)
         _zero_launch_counts()
         # a throwaway run: on the graph engine the warm-up step and the
         # capture. Both engines make it, so that their caches hold the same
         # rows outside the live prefix too (the uncond half's masked prompt
         # rows attend to the whole buffer, so their K/V depend on it)
-        forwards = eng.generate(model.params, 0, ids, max_steps=3).nfe
-        _, st = eng.generate(model.params, 0, ids, max_steps=2, return_state=True)
+        forwards = eng.generate(params, 0, ids, max_steps=3).nfe
+        _, st = eng.generate(params, 0, ids, max_steps=2, return_state=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, st = eng.resume(model.params, st, max_steps=steps, return_state=True)
+        _, st = eng.resume(params, st, max_steps=steps, return_state=True)
         torch.cuda.synchronize()
         runs[graph] = (eng, st, 1e3 * (time.perf_counter() - t0) / steps)
         forwards += st.nfe
         # every forward here has T <= 32 (a 15-token prompt, then windows of
-        # 16): each layer of each forward launches each kernel once
+        # 16): each forward launches each kernel as the table says
         launched[graph] = dict(executed=eng.stats.executed(launch_counts()),
-                               expected=layers * forwards)
+                               expected={k: n * forwards for k, n in table.items()})
     (e_eng, e_st, e_ms), (g_eng, g_st, g_ms) = runs[False], runs[True]
     diff = _state_diff(e_st, g_st)
     first = None
     if diff is not None:
         # step both again from the prefill, one decode step per call, to
         # name the first step and tensor that differ
-        sts = [eng.generate(model.params, 0, ids, max_steps=1, return_state=True)[1]
+        sts = [eng.generate(params, 0, ids, max_steps=1, return_state=True)[1]
                for eng in (e_eng, g_eng)]
         for i in range(1, steps + 2):
             for eng, st in zip((e_eng, g_eng), sts):
-                eng.resume(model.params, st, max_steps=1)
+                eng.resume(params, st, max_steps=1)
             name = _state_diff(*sts)
             if name is not None:
                 first = {"decode_step": i, "tensor": name}
                 break
     replays = g_eng.stats.replays
     profiled = _profiled_launches(
-        lambda: g_eng.resume(model.params, g_st, max_steps=profiled_steps))
+        lambda: g_eng.resume(params, g_st, max_steps=profiled_steps))
     profiled_replays = g_eng.stats.replays - replays
-    emit("graph", steps=steps, nfe=g_st.nfe, eager_ms_per_forward=e_ms,
+    emit(label, act_quant=cfg.act_quant, launches_per_forward=table, steps=steps, nfe=g_st.nfe, eager_ms_per_forward=e_ms,
          graph_ms_per_forward=g_ms, speedup=e_ms / g_ms, equal=diff is None,
          first_difference=first, tokens=int(g_st.length[0]),
          accept_hist=g_st.accept_hist.tolist(), captures=g_eng.stats.captures,
@@ -533,25 +789,36 @@ def phase_graph(dev, model, steps: int = 32, profiled_steps: int = 2):
     check(g_eng.stats.captures == 1 and replays == steps + 2, f"graph engine: {g_eng.stats}")
     for path, got in launched.items():
         for name, n in got["executed"].items():
-            check(n == got["expected"], f"{name}: {n} launches ran on the "
-                  f"{'graph' if path else 'eager'} engine, not {got['expected']}")
+            check(n == got["expected"][name], f"{name}: {n} launches ran on the "
+                  f"{'graph' if path else 'eager'} engine, not {got['expected'][name]}")
     check(profiled_replays == profiled_steps, f"{profiled_replays} replays profiled")
     for sym, n in profiled.items():
-        check(n == layers * profiled_steps,
-              f"the profiler saw {n} launches of {sym} in {profiled_steps} replays")
+        names = KERNEL_SYMBOLS[sym]
+        if names is None:
+            continue
+        want = sum(table[k] for k in ((names,) if isinstance(names, str) else names))
+        check(n == want * profiled_steps,
+              f"the profiler saw {n} launches of {sym} in {profiled_steps} replays, "
+              f"not {want * profiled_steps}")
     del runs, e_eng, g_eng, e_st, g_st
     torch.cuda.empty_cache()
+    return launched[True]["executed"]
 
 
-def phase_generate(dev, model):
+def phase_generate(dev, model, label: str = "generate"):
+    """One 768px image through ``model.sample_fn`` on the graph path; the
+    launches that ran must be :func:`per_forward`'s per forward, and no KV
+    row written outside the epilogue kernel."""
     import torch
 
     from sjd_tpu_torch.core.engine import GraphStats
     from sjd_tpu_torch.data.item_processor import split_generation
+    from sjd_tpu_torch.models.transformer import weight_bytes
     from sjd_tpu_torch.ops import launch_counts
     from sjd_tpu_torch.ops.fused_epilogue import write_kv_layer
 
     cfg = model.engine.model_cfg
+    table = per_forward(model.params, cfg)
     torch.cuda.reset_peak_memory_stats()
     model.engine.stats = GraphStats()
     _zero_launch_counts()
@@ -572,7 +839,9 @@ def phase_generate(dev, model):
     vq_s = time.time() - t0
     nfe = int(res.nfe)
     spans = [s for kind, s in split_generation(toks) if kind == "image"]
-    emit("generate", target_size=TARGET_SIZE, layers=cfg.num_layers,
+    emit(label, quantize=model.extras.get("quantize"), act_quant=cfg.act_quant,
+         weight_bytes=weight_bytes(model.params), target_size=TARGET_SIZE,
+         layers=cfg.num_layers,
          hidden=cfg.hidden_size, vocab=cfg.vocab_size, window=model.engine.config.window,
          tokens_generated=int(res.gen_count[0]), nfe=nfe,
          accept_hist=res.accept_hist.tolist(), wall_s=wall_s, vq_decode_s=vq_s,
@@ -580,7 +849,8 @@ def phase_generate(dev, model):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          image_shape=list(img.shape), image_dtype=str(img.dtype),
          image_tokens=len(spans[-1]) if spans else 0, launches=launches,
-         launches_counted=counted, launches_expected=cfg.num_layers * nfe,
+         launches_counted=counted,
+         launches_expected={k: n * nfe for k, n in table.items()},
          captures=stats.captures, graph_replays=stats.replays,
          eager_steps=stats.eager_steps, capture_s=stats.capture_s,
          write_kv_layer_calls=kv_writes)
@@ -591,9 +861,10 @@ def phase_generate(dev, model):
     check(stats.eager_steps + stats.replays + 1 == nfe, f"{stats} for {nfe} forwards")
     for name, n in launches.items():
         # every forward here has T <= 32 (a 15-token prompt, then windows of
-        # 16), so each layer of each forward launches each kernel once
-        check(n > 0, f"{name} was never launched on the main path")
-        check(n == cfg.num_layers * nfe, f"{name}: {n} launches for {nfe} forwards")
+        # 16), so each forward launches each kernel as the table says
+        check(n > 0 or table[name] == 0, f"{name} was never launched on the main path")
+        check(n == table[name] * nfe, f"{name}: {n} launches for {nfe} forwards, not "
+                                      f"{table[name] * nfe}")
     # the epilogue kernel writes the window's K/V rows itself
     check(kv_writes == 0, f"write_kv_layer ran {kv_writes} times on the kernel path")
     return launches
@@ -614,8 +885,6 @@ def phase_serve(dev, model, size: int = 512, chunk_steps: int = 64, rows_given: 
     tokens are then held against a run of the same two requests with no
     refill on an engine that steps eagerly (cuda_graph=False), so neither
     the graph nor the refill is in the reference."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -659,7 +928,7 @@ def phase_serve(dev, model, size: int = 512, chunk_steps: int = 64, rows_given: 
     stats = dict(captures=eng.stats.captures, graph_replays=eng.stats.replays,
                  eager_steps=eng.stats.eager_steps, capture_s=eng.stats.capture_s)
     decode_forwards = eng.stats.eager_steps + eng.stats.replays
-    layers = model.engine.model_cfg.num_layers
+    table = per_forward(model.params, model.engine.model_cfg)
     t0 = time.time()
     images = [model.extras["decode_image_fn"](c.tokens.tolist()) for c in done]
     torch.cuda.synchronize()
@@ -698,7 +967,7 @@ def phase_serve(dev, model, size: int = 512, chunk_steps: int = 64, rows_given: 
          smoke_gen_tokens_per_s=gen_tokens / serve_s,
          peak_mem_gb=peak, held_before_gb=held_gb,
          image_shapes=[list(im.shape) for im in images], launches=launches,
-         launches_expected=layers * decode_forwards,
+         launches_expected={k: n * decode_forwards for k, n in table.items()},
          live_request_equal_to_eager_without_refill=same,
          first_differing_token=first_diff,
          live_request_equal_at_width_1=across, **stats)
@@ -715,7 +984,7 @@ def phase_serve(dev, model, size: int = 512, chunk_steps: int = 64, rows_given: 
     check(decode_forwards == batcher.last_nfe - 1 - len(batcher.last_refills),
           f"{decode_forwards} decode forwards of {batcher.last_nfe}")
     for name, n in launches.items():
-        check(n == layers * decode_forwards,
+        check(n == table[name] * decode_forwards,
               f"{name}: {n} launches ran in serve for {decode_forwards} decode forwards")
 
 
@@ -742,13 +1011,36 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kernels = [phase_epilogue(dev), phase_attention(dev)]
+    kernels += phase_quant_kernels(dev)
     phase_forward(dev)
+    phase_quant_forward(dev)
     model = phase_load(dev)
-    phase_graph(dev, model)
+    ids = model.extras["prompt_ids_fn"](PROMPT)
+    cfg = model.engine.model_cfg
+    phase_graph(dev, model.params, cfg, ids)
     launches = phase_generate(dev, model)
     phase_serve(dev, model)
+    phase_widths(dev, model.params, cfg, "widths_bf16", hold=False)
+    # W4A8 with the int8 embedding, quantized on the card from the bf16
+    # weights (no second draw), as load_lumina_mgpt(quantize="w4a8",
+    # embed_bits=8) would hold them
+    from sjd_tpu_torch.models.transformer import quantize_weights
+
+    w4a8 = quantize_weights(model.params, bits=4, head_bits=8, equilibrate=False,
+                            embed_bits=8)
+    cfg8 = dataclasses.replace(cfg, act_quant="int8")
+    a8 = phase_graph(dev, w4a8, cfg8, ids, label="quant_serve")
+    del model, w4a8
+    gc.collect()
+    torch.cuda.empty_cache()
+    qmodel = phase_load(dev, quantize=4, label="quant_load")
+    qcfg = qmodel.engine.model_cfg
+    phase_graph(dev, qmodel.params, qcfg, ids, label="quant_graph")
+    a16 = phase_generate(dev, qmodel, label="quant_generate")
+    phase_widths(dev, qmodel.params, qcfg, "widths_w4a16", hold=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = {"quant_linear_a16": a16, "quant_linear_a8": a8}.get(
+            k["name"], launches)[k["name"]]
     emit("done", seconds=time.time() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

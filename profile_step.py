@@ -1,9 +1,12 @@
 """Where a decode step of the port's main path spends its time, on one GPU.
 
     python3 profile_step.py [--at 16 600 1000] [--steps 32] [--target-size 768] [--eager]
+                            [--quantize {4,w4a8}]
 
-Loads Lumina-mGPT-7B at full width and depth with random bf16 weights and
-an int8 KV cache (sjd_tpu_torch.loader.load_lumina_mgpt), warms up with
+Loads Lumina-mGPT-7B at full width and depth with random bf16 weights (or,
+with ``--quantize``, packed int4 projections and an int8 head: W4A16 with
+4, W4A8 with w4a8) and an int8 KV cache
+(sjd_tpu_torch.loader.load_lumina_mgpt), warms up with
 one short generation (which also captures the decode step as a CUDA
 graph), then, for each ``--at`` step A, measures the window of decode steps
 [A, A + steps) of one image generated from a fixed seed: ``generate`` up to
@@ -37,6 +40,9 @@ import subprocess
 import time
 
 
+GEMM_KEYS = ("nvjet", "gemm", "quant_linear_kernel", "reduce_splits_kernel")
+
+
 def reach(eng, params, ids, at: int):
     """The state after decode step ``at`` of the fixed-seed image."""
     _, st = eng.generate(params, 0, ids, max_steps=1 + at, return_state=True)
@@ -49,13 +55,17 @@ def reach(eng, params, ids, at: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # the default image (seed 0, this prompt) at 768px ends after ~1100
-    # decode steps, so the last default window closes before it
+    # decode steps on bf16 weights, so the last default window closes before
+    # it; on the random weights quantized to int4 it ends earlier (after
+    # ~935 decode steps on W4A16, ~857 on W4A8: pass --at 16 600 800)
     ap.add_argument("--at", type=int, nargs="+", default=[16, 600, 1000],
                     help="first decode step of each measured window")
     ap.add_argument("--steps", type=int, default=32, help="decode steps per window")
     ap.add_argument("--target-size", type=int, default=768)
     ap.add_argument("--eager", action="store_true",
                     help="run every step eagerly (cuda_graph=False)")
+    ap.add_argument("--quantize", choices=["4", "w4a8"], default=None,
+                    help="quantized weights: 4 = W4A16, w4a8 = W4A8 (int8 head both)")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
 
@@ -69,7 +79,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    model = load_lumina_mgpt(target_size=args.target_size, device="cuda")
+    quantize = {"4": 4, "w4a8": "w4a8", None: False}[args.quantize]
+    model = load_lumina_mgpt(target_size=args.target_size, quantize=quantize, device="cuda")
     eng, params = model.engine, model.params
     eng.cuda_graph = not args.eager
     ids = torch.tensor([model.extras["prompt_ids_fn"]("a photo of a red fox")],
@@ -101,6 +112,10 @@ def main() -> int:
         kernels = [ev for ev in events if str(ev.device_type).endswith("CUDA")]
         host = [ev for ev in events if not str(ev.device_type).endswith("CUDA")]
         busy_ms = sum(device_us(ev) for ev in kernels) / 1e3
+        # the weight products: cuBLAS's GEMMs on bf16 weights, the
+        # quantized-product kernels (and their split reduction) otherwise
+        gemm_ms = sum(device_us(ev) for ev in kernels
+                      if any(k in ev.key for k in GEMM_KEYS)) / 1e3
         launch_calls = {ev.key: ev.count / args.steps for ev in host
                         if "LaunchKernel" in ev.key or "GraphLaunch" in ev.key}
         top = sorted(kernels, key=device_us, reverse=True)[: args.top]
@@ -109,6 +124,7 @@ def main() -> int:
             "device": smi,
             "target_size": args.target_size,
             "path": "eager" if args.eager else "graph",
+            "quantize": args.quantize,
             "window": [at, at + args.steps],
             "graph_replays": eng.stats.replays - replays,
             "cache_rows": rows,
@@ -116,6 +132,8 @@ def main() -> int:
             # None: the profiler saw no device time (then it was not measured)
             "device_ms_per_forward": busy_ms / args.steps if busy_ms else None,
             "device_busy_share": busy_ms / 1e3 / wall if busy_ms else None,
+            "gemm_ms_per_forward": gemm_ms / args.steps,
+            "gemm_share_of_device": gemm_ms / busy_ms if busy_ms else None,
             "launch_calls_per_forward": launch_calls,
             "kernels": [{"name": ev.key[:120], "calls": ev.count,
                          "per_forward_ms": device_us(ev) / 1e3 / args.steps}

@@ -64,17 +64,54 @@ def vq_config_from_jax(jcfg) -> VQConfig:
     return VQConfig(dtype=torch_dtype(jcfg.dtype), **kw)
 
 
+def _pack_int4(q: np.ndarray) -> np.ndarray:
+    """int4 codes [..., K] -> split-half packed uint8 [..., K/2] (the JAX
+    package's quantize_weights layout)."""
+    q = q.astype(np.int8)
+    K = q.shape[-1]
+    lo, hi = q[..., : K // 2], q[..., K // 2:]
+    return ((lo & 0xF).astype(np.uint8) | (hi.astype(np.uint8) << np.uint8(4))).astype(np.uint8)
+
+
+def _quant_leaf(x: Any, dev):
+    """A quantized leaf dict of the JAX tree -> the port's: {"q4p", "s"} and
+    {"q": int8, "s"} as they are, and an unpacked int4 {"q": s4, "s"} (as a
+    TPU run's persist_int4_params leaves it) repacked to {"q4p", "s"}."""
+    q = np.asarray(x["q"]) if "q" in x else None
+    if q is not None and q.dtype.name == "int4":
+        x = {"q4p": _pack_int4(q), "s": x["s"]}
+    return {k: tensor_from_numpy(v, dev) for k, v in x.items()}
+
+
+def _leading(t) -> int:
+    """The stacked (layer) axis of a tensor or of a quantized leaf's codes."""
+    if isinstance(t, dict):
+        t = t["q4p"] if "q4p" in t else t["q"]
+    return t.shape[0]
+
+
 def params_from_jax(np_tree: dict, cfg: DecoderConfig, device=None) -> dict:
-    """sjd_tpu decoder params (numpy leaves) -> the port's params."""
+    """sjd_tpu decoder params (numpy leaves) -> the port's params. Quantized
+    trees (``quantize_weights``: int8 and packed int4 projections and head,
+    the int8 embedding) keep their bytes; unpacked int4 codes are repacked."""
     dev = resolve_device(device)
-    params = _tree(np_tree, lambda a: tensor_from_numpy(a, dev))
+
+    def conv(x):
+        if isinstance(x, dict) and "s" in x and ("q" in x or "q4p" in x):
+            return _quant_leaf(x, dev)
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return tensor_from_numpy(x, dev)
+
+    params = conv(np_tree)
     n, d = cfg.num_layers, cfg.hidden_size
-    if tuple(params["embed"].shape) != (cfg.vocab_size, d):
-        raise ValueError(f"embed is {tuple(params['embed'].shape)}, config "
-                         f"wants {(cfg.vocab_size, d)}")
+    embed = params["embed"]
+    rows = embed["q"] if isinstance(embed, dict) else embed
+    if tuple(rows.shape) != (cfg.vocab_size, d):
+        raise ValueError(f"embed is {tuple(rows.shape)}, config wants {(cfg.vocab_size, d)}")
     for name, t in params["layers"].items():
-        if t.shape[0] != n:
-            raise ValueError(f"layers/{name} stacks {t.shape[0]} layers, config has {n}")
+        if _leading(t) != n:
+            raise ValueError(f"layers/{name} stacks {_leading(t)} layers, config has {n}")
     return params
 
 

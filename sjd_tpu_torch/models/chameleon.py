@@ -75,6 +75,7 @@ def lumina_engine(
     dtype: torch.dtype = torch.bfloat16,
     greedy: bool = False,
     kv_quant: bool = True,
+    act_quant: str = "bf16",  # "int8": W4A8/W8A8 on quantized weights
     model_cfg: Optional[DecoderConfig] = None,  # overrides the size registry;
     # must keep the FlexAR vocab layout
     cuda_graph: bool = True,  # SJDEngine's: replay a captured step on CUDA
@@ -84,6 +85,8 @@ def lumina_engine(
     cfg = model_cfg if model_cfg is not None else chameleon_config(size, dtype)
     if kv_quant:
         cfg = dataclasses.replace(cfg, kv_quant=True)
+    if act_quant != "bf16":
+        cfg = dataclasses.replace(cfg, act_quant=act_quant)
     grid = target_size // 16
     if not max_len:
         max_len = grid * (grid + 1) + 64

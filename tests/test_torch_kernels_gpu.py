@@ -337,8 +337,9 @@ def test_new_prompt_width_releases_the_old_state_and_graph(cuda):
 
 
 def test_executed_launches_are_layers_times_forwards(cuda):
-    """Each kernel runs once per layer per forward; the capture's recorded
-    launches are taken out and each replay's put in (GraphStats.executed)."""
+    """Each TPU kernel runs once per layer per forward; the capture's
+    recorded launches are taken out and each replay's put in
+    (GraphStats.executed). bf16 weights launch no quantized product."""
     from sjd_tpu_torch.ops import launch_counts
 
     eng, prompt = _small_lumina(cuda, True)
@@ -347,5 +348,159 @@ def test_executed_launches_are_layers_times_forwards(cuda):
     res = eng.generate(params, 0, torch.tensor([prompt], device=cuda), max_steps=20)
     counted = {k: n - before[k] for k, n in launch_counts().items()}
     executed = eng.stats.executed(counted)
-    assert eng.stats.captured_launches == {"fused_epilogue": 2, "decode_attention": 2}
-    assert executed == {k: eng.model_cfg.num_layers * res.nfe for k in counted}
+    per_forward = {"fused_epilogue": eng.model_cfg.num_layers,
+                   "decode_attention": eng.model_cfg.num_layers,
+                   "quant_linear_a16": 0, "quant_linear_a8": 0}
+    assert eng.stats.captured_launches == per_forward  # the capture records one forward
+    assert executed == {k: n * res.nfe for k, n in per_forward.items()}
+
+
+# -- quantized-weight products (csrc/quant_linear.cu) -------------------------
+
+
+def _quant_inputs(cuda, M, N, K, bits, seed=0):
+    """bf16 activations, and a weight quantized as quantize_weights does."""
+    from sjd_tpu_torch.models import transformer as pt
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((N, K), generator=g, device=cuda) / K ** 0.5).to(torch.bfloat16)
+    leaf = pt.quantize_int4(w) if bits == 4 else pt.quantize_int8(w)
+    return x, leaf["q4p" if bits == 4 else "q"], leaf["s"]
+
+
+# (M, N, K): the decode window at the 7B's widths, the serve window, the
+# MLP's down projection, ragged rows and columns with a partial last chunk,
+# one row, and a prefill's rows
+QUANT_CASES = {
+    "decode": (32, 4096, 4096), "serve": (64, 11008, 4096), "down": (32, 4096, 11008),
+    "ragged": (37, 200, 288), "one_row": (1, 72, 160), "prefill": (150, 1000, 4096),
+}
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("case", list(QUANT_CASES))
+def test_quant_linear_kernels_match_plain(cuda, case, bits, a8):
+    """Each kernel against its plain version: A16 within one bf16 rounding
+    (f32 sums in another order), A8 bit-equal (exact int32 sums, the scales
+    multiplied in the same order)."""
+    from sjd_tpu_torch.models.transformer import _quantize_act
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    M, N, K = QUANT_CASES[case]
+    x, q, s = _quant_inputs(cuda, M, N, K, bits)
+    if a8:
+        xq, xs = _quantize_act(x)
+        before = ql.quant_linear_a8.launches
+        got = ql.quant_linear_a8(xq, xs, q, s, bits=bits)
+        want = ql.quant_linear_a8_plain(xq, xs, q, s, bits=bits)
+        assert ql.quant_linear_a8.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    else:
+        before = ql.quant_linear_a16.launches
+        got = ql.quant_linear_a16(x, q, s, bits=bits)
+        want = ql.quant_linear_a16_plain(x, q, s, bits=bits)
+        assert ql.quant_linear_a16.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (11008, 4096), (4096, 11008)],
+                         ids=["split", "one_split", "down"])
+def test_quant_linear_rows_do_not_depend_on_the_row_count(cuda, shape, a8):
+    """A row's output is bit-identical whether it is multiplied alone, in a
+    decode window (32 rows), a serve window (64) or a prefill (160)."""
+    from sjd_tpu_torch.models.transformer import _quantize_act
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    N, K = shape
+    x, q, s = _quant_inputs(cuda, 160, N, K, 4, seed=3)
+
+    def run(rows):
+        if a8:
+            xq, xs = _quantize_act(rows)
+            return ql.quant_linear_a8(xq, xs, q, s, bits=4)
+        return ql.quant_linear_a16(rows, q, s, bits=4)
+
+    full = run(x)
+    for m in (1, 32, 64):
+        assert torch.equal(run(x[:m].contiguous()), full[:m]), m
+    assert torch.equal(run(x[37:38].contiguous()), full[37:38])
+
+
+def test_quant_linear_refuses_what_the_kernel_does_not_take(cuda):
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    x, q, s = _quant_inputs(cuda, 4, 64, 256, 4)
+    ql.quant_linear_a16(x, q, s, bits=4)  # the baseline call is taken
+    with pytest.raises(ValueError):  # f32 activations: the kernel reads bf16
+        ql.quant_linear_a16(x.float(), q, s, bits=4)
+    with pytest.raises(ValueError):  # rows of 8 packed bytes: not a multiple of 16
+        ql.quant_linear_a16(x[:, :16].contiguous(), q[:, :8].contiguous(), s, bits=4)
+    with pytest.raises(ValueError):  # bits 2
+        ql.quant_linear_a16(x, q, s, bits=2)
+    with pytest.raises(ValueError):  # int8 codes given as packed int4
+        ql.quant_linear_a16(x, q.view(torch.int8), s, bits=4)
+    with pytest.raises(ValueError):  # the kernel writes bf16 only
+        ql.quant_linear_a8(x.to(torch.int8), torch.ones((4, 1), device=cuda), q, s, bits=4,
+                           out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("act", ["bf16", "int8"], ids=["w4a16", "w4a8"])
+def test_quantized_forward_kernel_path_matches_plain_path(cuda, act):
+    """A 2-layer Chameleon-shaped decoder on W4A16 / W4A8 weights (int8
+    head): a 12-row prefill and a window through the kernels against
+    attn_impl="plain" (plain attention and plain quantized products)."""
+    import dataclasses
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    cfg = pt.DecoderConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                           num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                           qk_norm=True, kv_quant=True, act_quant=act,
+                           max_position_embeddings=256)
+    params = pt.quantize_weights(pt.init_params(0, cfg, device=cuda), bits=4, head_bits=8,
+                                 config=cfg)
+    rope = pt.make_rope_table(cfg, 256, device=cuda)
+    S, P, W, L = 2, 12, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ids = torch.randint(0, 1024, (S, P + W), generator=gen, device=cuda)
+    valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
+    pos = torch.arange(P, device=cuda).expand(S, P)
+    pos_w = P + torch.arange(W, device=cuda).expand(S, W)
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
+        kernel = ql.quant_linear_a8 if act == "int8" else ql.quant_linear_a16
+        before = kernel.launches
+        kv = pt.init_kv_cache(c, S, L, device=cuda)
+        zero = torch.zeros((S,), dtype=torch.int32, device=cuda)
+        pt.forward(params, c, ids[:, :P], pos, kv, zero, valid, rope)
+        outs.append(pt.forward(params, c, ids[:, P:], pos_w, kv, zero + P, valid,
+                               rope).logits)
+        # 7 products per layer and the head, in each of the two forwards
+        assert kernel.launches - before == (0 if c.attn_impl == "plain" else 2 * (7 * 2 + 1))
+    err = (outs[0] - outs[1]).abs().max().item()
+    assert err <= 0.05 * outs[1].abs().max().item(), err
+
+
+def test_quantized_graph_path_equals_eager_path(cuda):
+    """The captured decode step on W4A16 weights: 12 steps replayed against
+    12 eager ones, tokens and KV bytes equal."""
+    from sjd_tpu_torch.models import transformer as pt
+
+    states = {}
+    for graph in (False, True):
+        eng, prompt = _small_lumina(cuda, graph)
+        params = pt.quantize_weights(_params(cuda, eng), bits=4, head_bits=8,
+                                     config=eng.model_cfg)
+        ids = torch.tensor([prompt], device=cuda)
+        _, states[graph] = eng.generate(params, 0, ids, max_steps=13, return_state=True)
+    for name in ("tokens", "length", "accept_hist"):
+        assert torch.equal(getattr(states[False], name), getattr(states[True], name)), name
+    for a, b in zip(states[False].kv, states[True].kv):
+        assert torch.equal(a, b), "KV cache bytes differ"
