@@ -42,7 +42,9 @@ and the quantized weights (csrc/quant_linear.cu):
   3b. quant_kernels - K1 (W4A16/W8A16) and K2 (W4A8/W8A8) against their
                plain versions at the 7B's four weight shapes and the rows
                of a generate window (32), a serve window (64) and a prefill
-               (30), with their times, bounds and library yardsticks;
+               (30), with their times, bounds and library yardsticks, the
+               block's weight rows, the splits and blocks per launch; the
+               profiler must see each call run one kernel on the device;
   4b. quant_forward - phase 4's decoder on W4A16 and W4A8 weights;
   10. quant_serve - W4A8 with the int8 embedding, quantized on the card from
                phase 5's bf16 weights: phase 6's check (32 replayed steps
@@ -60,7 +62,8 @@ ran are the counters minus the capture's records plus each replay's
 (GraphStats.executed, which each graph check's profile holds to the
 device's trace). They must be per_forward()'s per forward with T <= 32: 32
 of each TPU kernel, and on quantized weights 225 quantized products (7 per
-layer and the head).
+layer and the head), each one launch of quant_linear_kernel: the profile
+must show no reduce_splits_kernel.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failed phase raises
@@ -436,6 +439,10 @@ def _quant_case(dev, weight: str, bits: int, a8: bool, case: str, seed: int):
     err = (got.float() - want.float()).abs().max().item()
     tol = 0.0 if a8 else 2 ** -7 * want.float().abs().max().item() + 1e-3
     ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+    # one product, one launch: the device runs the one kernel and nothing else
+    ran, traces = _device_kernels(call)
+    one_launch = list(ran.values()) == [1] and "::quant_linear_kernel<" in next(iter(ran))
+    tiles_n, tiles_m, splits = ql.grid(M, N, K, bits, a8)
     ms, call_ms = time_ms(call, reps=12, trials=7), eager_ms(call, reps=12, trials=7)
     plain_ms = time_ms(plain, reps=2, trials=3)
     codes = ql.unpack_int4(q) if bits == 4 else q
@@ -462,12 +469,15 @@ def _quant_case(dev, weight: str, bits: int, a8: bool, case: str, seed: int):
     n_bytes = wbytes + xbytes + 2 * M * N
     b_ms, b_by = bound_ms(n_bytes, 2 * M * N * K, INT8_TENSOR_OPS if a8 else BF16_TENSOR_FLOPS)
     row = dict(name="quant_linear_a8" if a8 else "quant_linear_a16", weight=weight, bits=bits,
-               case=case, shape=dict(M=M, N=N, K=K), splits=ql.splits(N, K, bits),
-               max_abs_err=err, tolerance=tol, ok=ok, ms=ms, eager_ms=call_ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
-               bytes=n_bytes, library_ms=library)
+               case=case, shape=dict(M=M, N=N, K=K), tile=ql.tile(a8)[0], splits=splits,
+               blocks=tiles_n * tiles_m * splits, resident_blocks=ql.resident(bits, a8),
+               kernels_per_call=ran, profile_traces=traces, max_abs_err=err, tolerance=tol,
+               ok=ok, ms=ms, eager_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_share=b_ms / ms, bytes=n_bytes, library_ms=library)
     emit("quant_kernel", **row)
     check(ok, f"{row['name']} (int{bits}, {weight}, {case}) disagrees with its plain version")
+    check(one_launch, f"{row['name']} (int{bits}, {weight}, {case}) ran {ran} on the device, "
+                      "not one quant_linear_kernel")
     torch.cuda.empty_cache()
     return row
 
@@ -690,32 +700,49 @@ def per_forward(params, cfg) -> dict:
 
 # the kernels' symbols as the profiler names them (csrc/*.cu), with the
 # launch table's entry each counts once per launch: the epilogue's, the
-# attention's split and merge kernels, the quantized products' main kernel
-# (its split-reducing kernel runs for some shapes only and is reported)
+# attention's split and merge kernels, the quantized products' one kernel
 KERNEL_SYMBOLS = {"::epilogue_kernel<": "fused_epilogue",
                   "::flash_decode_split_kernel<": "decode_attention",
                   "::merge_splits_kernel<": "decode_attention",
-                  "::quant_linear_kernel<": ("quant_linear_a16", "quant_linear_a8"),
-                  "::reduce_splits_kernel<": None}
+                  "::quant_linear_kernel<": ("quant_linear_a16", "quant_linear_a8")}
+# symbols that must not run: the second launch that added the quantized
+# products' split partials before the split sum moved into the one kernel
+GONE_SYMBOLS = ("reduce_splits_kernel",)
 
 
-def _profiled_launches(run) -> dict:
-    """The kernels' launches the device ran during ``run()``, by symbol, as
-    torch.profiler traces them (replayed graph nodes included)."""
+def _device_kernels(run, tries: int = 3) -> tuple[dict, int]:
+    """Every kernel the device ran during ``run()``, by name, with its
+    count, as torch.profiler traces them (replayed graph nodes included),
+    and the number of traces taken. A trace of one lone kernel has, rarely,
+    come back with no device event at all: such a trace is the tracer's
+    miss, not a result
+    (the callers hold the output and the launch counters too): ``run()`` is
+    traced again, at most ``tries`` times in all. Each trace also leaves the
+    device idle for a few milliseconds on either side of ``run()``, since
+    the tracer drops device events outside its capture window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-    seen = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    for ev in prof.key_averages():
-        if str(ev.device_type).endswith("CUDA"):
-            for sym in seen:
-                if sym in ev.key:
-                    seen[sym] += ev.count
-    return seen
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        ran = {ev.key: ev.count for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")}
+        if ran:
+            break
+    return ran, attempt
+
+
+def _profiled_launches(run) -> tuple[dict, int]:
+    """The kernels' launches the device ran during ``run()``, by symbol
+    (KERNEL_SYMBOLS, then GONE_SYMBOLS), and the number of traces taken."""
+    ran, traces = _device_kernels(run)
+    return {sym: sum(n for key, n in ran.items() if sym in key)
+            for sym in (*KERNEL_SYMBOLS, *GONE_SYMBOLS)}, traces
 
 
 def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int = 32,
@@ -772,7 +799,7 @@ def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int =
                 first = {"decode_step": i, "tensor": name}
                 break
     replays = g_eng.stats.replays
-    profiled = _profiled_launches(
+    profiled, traces = _profiled_launches(
         lambda: g_eng.resume(params, g_st, max_steps=profiled_steps))
     profiled_replays = g_eng.stats.replays - replays
     emit(label, act_quant=cfg.act_quant, launches_per_forward=table, steps=steps, nfe=g_st.nfe, eager_ms_per_forward=e_ms,
@@ -782,7 +809,8 @@ def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int =
          capture_s=g_eng.stats.capture_s, graph_replays=g_eng.stats.replays,
          eager_steps=g_eng.stats.eager_steps,
          launches={"eager" if not k else "graph": v for k, v in launched.items()},
-         profiled_replays=profiled_replays, profiled_kernel_launches=profiled)
+         profiled_replays=profiled_replays, profiled_kernel_launches=profiled,
+         profile_traces=traces)
     check(diff is None, f"graph and eager decode steps differ: first at {first}, "
                         f"after {steps} steps in {diff}")
     # replays: one in the throwaway run, one in the step before the window
@@ -791,10 +819,13 @@ def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int =
         for name, n in got["executed"].items():
             check(n == got["expected"][name], f"{name}: {n} launches ran on the "
                   f"{'graph' if path else 'eager'} engine, not {got['expected'][name]}")
-    check(profiled_replays == profiled_steps, f"{profiled_replays} replays profiled")
+    # each trace taken (a trace that saw nothing is taken again) replays
+    check(profiled_replays == profiled_steps * traces,
+          f"{profiled_replays} replays profiled in {traces} traces")
     for sym, n in profiled.items():
-        names = KERNEL_SYMBOLS[sym]
+        names = KERNEL_SYMBOLS.get(sym)
         if names is None:
+            check(n == 0, f"the profiler saw {n} launches of {sym}, which is gone")
             continue
         want = sum(table[k] for k in ((names,) if isinstance(names, str) else names))
         check(n == want * profiled_steps,

@@ -40,7 +40,7 @@ import subprocess
 import time
 
 
-GEMM_KEYS = ("nvjet", "gemm", "quant_linear_kernel", "reduce_splits_kernel")
+GEMM_KEYS = ("nvjet", "gemm", "quant_linear_kernel")
 
 
 def reach(eng, params, ids, at: int):
@@ -113,7 +113,7 @@ def main() -> int:
         host = [ev for ev in events if not str(ev.device_type).endswith("CUDA")]
         busy_ms = sum(device_us(ev) for ev in kernels) / 1e3
         # the weight products: cuBLAS's GEMMs on bf16 weights, the
-        # quantized-product kernels (and their split reduction) otherwise
+        # quantized-product kernel otherwise
         gemm_ms = sum(device_us(ev) for ev in kernels
                       if any(k in ev.key for k in GEMM_KEYS)) / 1e3
         launch_calls = {ev.key: ev.count / args.steps for ev in host

@@ -14,40 +14,60 @@
 // j holds column j in its low nibble and column j + K/2 in its high one).
 //
 // What bounds it on the H100. At the decode path's M = 32 the weights are
-// all the bytes: a 4096 x 4096 projection is 8.4 MB in int4, 2.5 us at
-// 3.35 TB/s, against 1.07 GFLOP, 1.1 us at the bf16 tensor cores' dense
-// peak. At M = 64 the operations double and mma.sync, below wgmma's peak,
-// may bind instead. What the design does about it:
+// the bytes that must come from HBM: a 4096 x 4096 projection is 8.4 MB in
+// int4, 2.5 us at 3.35 TB/s, against 1.07 GFLOP, 1.1 us at the bf16 tensor
+// cores' dense peak. What the card spends beyond that goes to the bytes the
+// kernel moves besides: every block stages the activation columns of its
+// chunks beside its weight rows, so every N tile reads the whole activation
+// again from L2 (at 64 weight rows per block, twice the int4 weight bytes),
+// and a K range split over several blocks writes and reads partial sums.
+// What the design does about it:
 //
-// - Weights straight from the packed bytes. A block owns 64 weight rows
-//   (16 per warp) and 32 activation rows; a chunk is 64 bytes of each
-//   weight row. One 16-byte read of a row feeds 16 columns at k and, for
-//   int4, 16 at k + K/2, so the activation tile holds both places.
-// - A cp.async ring, kStages chunks deep, for the weight and activation
-//   tiles, so that the next chunks' bytes are in flight while one is
-//   multiplied (at one or two blocks per SM the ring is what keeps enough
-//   bytes in flight to approach the memory rate).
+// - K1's block holds kBN = 128 weight rows (8 warps of 16): each staged
+//   activation chunk feeds all of them, half the activation bytes per
+//   weight byte of a 64-row block. K2's activations are int8, half K1's
+//   bytes, and its block keeps 64 rows (4 warps of 16, two chunks a stage):
+//   no 128-row layout ran faster for it. A block takes kBM = 32 activation
+//   rows; M above 32 takes more blocks along M. A chunk is 64 bytes of each
+//   weight row; one 16-byte read of a row feeds 16 columns at k and, for
+//   int4, 16 at k + K/2, so the activation tile holds both.
+// - A cp.async ring, kStages stages of kWarpsK chunks, for the weight and
+//   activation tiles, so that the next chunks' bytes are in flight while
+//   one is multiplied.
 // - Tensor cores through mma.sync: K1 on m16n8k16 bf16 with f32 sums (the
 //   int -> bf16 convert is exact: an int4 nibble becomes 136 + v by a bit
 //   pattern, minus 136; an int8 code goes through an exact f32); K2 on
 //   m16n8k32 s8 with s32 sums, exact, int4 nibbles widened to int8 as
 //   16 * v (one mask), the sum shifted right by 4 at the end.
-// - Filling the card. The K range is split over gridDim.z; the split count
-//   depends on N, K and the bits only (sjd_quant_linear_splits), never on
-//   M, and each split's rows are summed in one fixed order. So a row of y
-//   is bit-identical whatever M is (the batcher's promise: a request's
-//   tokens do not depend on the batch width). With more than one split each
-//   block writes f32 (K1) or int32 (K2) partials to a scratch the caller
-//   allocates, and reduce_splits_kernel adds them in split order and applies
-//   the scales.
+// - One launch. The K range is split over gridDim.z; the split count
+//   depends on N, K, the bits and the kernel (sjd_quant_linear_splits),
+//   never on M: at most one wave of resident blocks at one M tile (kWaveBlocks), at
+//   least a full ring of chunks per split, and at most kMaxSplits (the
+//   partials of more splits cost more than their blocks add). With more
+//   than one split each block writes its f32 (K1) or int32 (K2) partial to
+//   a scratch the caller allocates, then counts its arrival on an int32
+//   counter of its (N tile, M tile) in a buffer the caller keeps zeroed.
+//   The block that arrives last adds the partials in split order 0 .. g-1,
+//   applies the scales, writes y and stores 0 back into the counter, so the
+//   next launch, and every replay of a graph that holds this one, finds it
+//   zero. A row of y is therefore bit-identical whatever M is (the
+//   batcher's promise: a request's tokens do not depend on the batch
+//   width). The kernel assumes one stream at a time: two launches in
+//   flight together on one counter buffer would mix their arrivals.
 // - The k order inside an mma is permuted alike in both operands so that
 //   each thread reads consecutive bytes; shared-memory rows are padded so
 //   that the 16-byte fragment reads of a quarter warp hit distinct banks.
+//   The kernel declares no static shared memory: a 16-byte flag beside the
+//   dynamic ring made the same loop 15-40% slower on the H100, so the
+//   arrival flag lives in the idle ring.
 //
 // C interface (ctypes): sjd_quant_linear(...) returns cudaGetLastError();
-// sjd_quant_linear_splits(N, K, bits) returns the split count, which sizes
-// the caller's scratch. The kernels launch on the given stream and allocate
-// nothing.
+// sjd_quant_linear_splits(N, K, bits, a8) returns the split count, which
+// sizes the caller's scratch; sjd_quant_linear_tile(dim, a8) the block's
+// weight rows (dim 0) and activation rows (dim 1), which size its
+// counters; sjd_quant_linear_resident(bits, a8) the blocks the current
+// device holds at once. The kernel launches on the given stream and
+// allocates nothing.
 
 #include <atomic>
 #include <cuda_bf16.h>
@@ -56,20 +76,40 @@
 
 namespace {
 
-constexpr int kWarpsN = 4;  // warps along N, 16 weight rows each
-constexpr int kWarpsK = 2;  // warps along K: warp group kk takes chunk kk of a stage
-constexpr int kThreads = 32 * kWarpsN * kWarpsK;
-constexpr int kBN = 16 * kWarpsN;  // weight rows per block
-constexpr int kBM = 32;            // activation rows per block (two m16 tiles)
-constexpr int kChunk = 64;         // weight bytes per row per chunk
-constexpr int kStages = 4;  // stages of kWarpsK chunks in the cp.async ring
-constexpr int kTargetBlocks = 264;  // two blocks per SM of the 132
-constexpr int kMaxSplits = 8;
-constexpr int kMinChunksPerSplit = 4;
-constexpr int kReduceThreads = 256;
+// the block's warps: kWarpsN along N of kWarpRows weight rows each, kWarpsK
+// along K (warp group kk takes chunk kk of a stage); K1 (A16) and K2 (A8)
+// each have their own layout
+constexpr int kWarpRows = 16;  // weight rows per warp: kWarpRows / 8 n8 tiles
+constexpr int kWarpsNA16 = 8;  // K1: 8 x 16 = 128 weight rows
+constexpr int kWarpsKA16 = 1;
+constexpr int kWarpsNA8 = 4;   // K2: 4 x 16 = 64 weight rows, 2 chunks a stage
+constexpr int kWarpsKA8 = 2;
+constexpr int kStages = 4;     // stages of kWarpsK chunks in the cp.async ring
+constexpr int kBlocksPerSM = 2;  // blocks resident on each SM (registers capped to fit)
+constexpr int kSMs = 132;        // the H100 SXM's
+constexpr int kMaxSplits = 4;    // more splits write more partials than they save
+constexpr bool kStageX = true;  // false only in a timing copy: no activation loads
+constexpr int kNT = kWarpRows / 8;        // n8 tiles per warp
+constexpr int kBM = 32;                   // activation rows per block (two m16 tiles)
+constexpr int kChunk = 64;                // weight bytes per row per chunk
+constexpr int kWaveBlocks = kSMs * kBlocksPerSM;  // one wave of blocks
+static_assert(kWarpRows % 8 == 0 && kWarpRows >= 8, "a warp takes whole n8 tiles");
+
+template <bool kA8>
+struct Warps {
+  static constexpr int kN = kA8 ? kWarpsNA8 : kWarpsNA16;
+  static constexpr int kK = kA8 ? kWarpsKA8 : kWarpsKA16;
+  static constexpr int kThreads = 32 * kN * kK;
+  static constexpr int kBN = kN * kWarpRows;  // weight rows per block
+  static constexpr int kMinChunksPerSplit = kStages * kK;  // a split fills the ring
+  static_assert(kThreads % kBN == 0 && kBM % (kThreads / kBN) == 0,
+                "the split sum: a thread keeps its column and takes whole rows");
+};
 
 template <int kBits, bool kA8>
 struct Tile {
+  static constexpr int kWarpsN = Warps<kA8>::kN, kWarpsK = Warps<kA8>::kK;
+  static constexpr int kBN = Warps<kA8>::kBN;
   static constexpr int kHalves = kBits == 4 ? 2 : 1;  // int4: columns k and k + K/2
   static constexpr int kXBytes = kA8 ? 1 : 2;         // int8 or bf16 activations
   static constexpr int kXHalfBytes = kChunk * kXBytes;
@@ -83,8 +123,9 @@ struct Tile {
   static constexpr int kSubBytes = kXSub + kBN * kChunk;
   static constexpr int kStageBytes = kWarpsK * kSubBytes;
   static constexpr int kRing = kStages * kStageBytes;
-  // the warp groups' sums, merged at the end: [kWarpsK - 1][kWarpsN][32 lanes][16]
-  static constexpr int kRed = (kWarpsK - 1) * kWarpsN * 32 * 16 * 4;
+  // the warp groups' sums, merged at the end: [kWarpsK - 1][kWarpsN][32 lanes][kPerLane]
+  static constexpr int kPerLane = 2 * kNT * 4;
+  static constexpr int kRed = (kWarpsK - 1) * kWarpsN * 32 * kPerLane * 4;
   static constexpr int kSmem = kRing > kRed ? kRing : kRed;
   static constexpr int kXPieces = kBM * kXRowBytes / 16;  // per chunk
   static constexpr int kWPieces = kBN * kChunk / 16;
@@ -161,19 +202,33 @@ struct Acc<true> {
   using T = int;
 };
 
+// y's element from its summed product: the scales in JAX's order
+template <bool kA8>
+__device__ __forceinline__ __nv_bfloat16 scaled(typename Acc<kA8>::T v, const float* xs,
+                                                const __nv_bfloat16* s, int m, int n) {
+  if constexpr (kA8) {
+    return __float2bfloat16_rn((float)v * xs[m] * __bfloat162float(s[n]));
+  } else {
+    return __float2bfloat16_rn(v * __bfloat162float(s[n]));
+  }
+}
+
 // grid: (ceil(N / kBN), ceil(M / kBM), splits); block: kThreads; dynamic
-// shared memory: Tile<kBits, kA8>::kSmem.
+// shared memory: Tile<kBits, kA8>::kSmem (kBN, kThreads: Warps<kA8>).
 template <int kBits, bool kA8>
-__global__ void __launch_bounds__(kThreads) quant_linear_kernel(
+__global__ void __launch_bounds__(Warps<kA8>::kThreads, kBlocksPerSM) quant_linear_kernel(
     const uint8_t* __restrict__ x,          // A16: bf16 [M, K]; A8: int8 [M, K]
     const float* __restrict__ xs,           // A8: f32 [M]
     const uint8_t* __restrict__ w,          // [N, Kb] bytes: int8 codes or packed int4
     const __nv_bfloat16* __restrict__ s,    // [N]
-    __nv_bfloat16* __restrict__ y,          // [M, N] (one split)
+    __nv_bfloat16* __restrict__ y,          // [M, N]
     typename Acc<kA8>::T* __restrict__ part,  // [splits, M, N] (several splits)
+    int* __restrict__ counters,             // [gridDim.y * gridDim.x], zero (several splits)
     int M, int N, int K, int n_chunks, int splits) {
   using Lay = Tile<kBits, kA8>;
   using AccT = typename Acc<kA8>::T;
+  constexpr int kWarpsN = Warps<kA8>::kN, kWarpsK = Warps<kA8>::kK;
+  constexpr int kThreads = Warps<kA8>::kThreads, kBN = Warps<kA8>::kBN;
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int Kb = kBits == 4 ? K / 2 : K;  // weight bytes per row = k per half
@@ -184,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
   const int c_count = (sp + 1) * n_chunks / splits - c_begin;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int wn = warp % kWarpsN;  // the warp's 16 weight rows
+  const int wn = warp % kWarpsN;  // the warp's kWarpRows weight rows
   const int wk = warp / kWarpsN;  // the warp's chunk of each stage
   const int lane = tid & 31;
   const int gid = lane >> 2;  // mma groupID: row of A and C, column of B
@@ -208,20 +263,22 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
       cp_async16(st + sub * Lay::kSubBytes + Lay::kXSub + r * kChunk + 16 * part16, src,
                  ok ? 16 : 0);
     }
-    constexpr int kPerRow = Lay::kXRowBytes / 16;
-    constexpr int kPerHalf = Lay::kXHalfBytes / 16;
+    if constexpr (kStageX) {
+      constexpr int kPerRow = Lay::kXRowBytes / 16;
+      constexpr int kPerHalf = Lay::kXHalfBytes / 16;
 #pragma unroll
-    for (int p = tid; p < kWarpsK * Lay::kXPieces; p += kThreads) {
-      const int sub = p / Lay::kXPieces, pp = p % Lay::kXPieces;
-      const int r = pp / kPerRow, piece = pp % kPerRow;
-      const int half = piece / kPerHalf, within = piece % kPerHalf;
-      const int k = (c0 + sub) * kChunk + within * (16 / Lay::kXBytes);  // within its half
-      const bool ok = m0 + r < M && k < Kb && c0 + sub < c_end;
-      const uint8_t* src =
-          ok ? x + ((size_t)(m0 + r) * K + half * Kb + k) * Lay::kXBytes : x;
-      cp_async16(st + sub * Lay::kSubBytes + r * Lay::kXStride + half * Lay::kXHalfBytes +
-                     16 * within,
-                 src, ok ? 16 : 0);
+      for (int p = tid; p < kWarpsK * Lay::kXPieces; p += kThreads) {
+        const int sub = p / Lay::kXPieces, pp = p % Lay::kXPieces;
+        const int r = pp / kPerRow, piece = pp % kPerRow;
+        const int half = piece / kPerHalf, within = piece % kPerHalf;
+        const int k = (c0 + sub) * kChunk + within * (16 / Lay::kXBytes);  // within its half
+        const bool ok = m0 + r < M && k < Kb && c0 + sub < c_end;
+        const uint8_t* src =
+            ok ? x + ((size_t)(m0 + r) * K + half * Kb + k) * Lay::kXBytes : x;
+        cp_async16(st + sub * Lay::kSubBytes + r * Lay::kXStride + half * Lay::kXHalfBytes +
+                       16 * within,
+                   src, ok ? 16 : 0);
+      }
     }
   };
 #pragma unroll
@@ -230,11 +287,11 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
     cp_async_commit();
   }
 
-  AccT acc[2][2][4];  // [m16 tile][n8 tile][fragment]
+  AccT acc[2][kNT][4];  // [m16 tile][n8 tile][fragment]
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int b = 0; b < 2; ++b)
+    for (int b = 0; b < kNT; ++b)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[a][b][e] = 0;
 
@@ -246,10 +303,11 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
     const uint8_t* xst = smem + (it % kStages) * Lay::kStageBytes + wk * Lay::kSubBytes;
     const uint8_t* wst = xst + Lay::kXSub;
     // the thread's 16 bytes of weight row gid of each n8 tile
-    uint4 wb[2];
+    uint4 wb[kNT];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wb[j] = *reinterpret_cast<const uint4*>(wst + (16 * wn + 8 * j + gid) * kChunk + 16 * tig);
+    for (int j = 0; j < kNT; ++j)
+      wb[j] = *reinterpret_cast<const uint4*>(wst + (kWarpRows * wn + 8 * j + gid) * kChunk +
+                                              16 * tig);
 
 #pragma unroll
     for (int half = 0; half < Lay::kHalves; ++half) {
@@ -270,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
           for (int j = 0; j < 2; ++j) {
             const int step = 2 * h + j;
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
+            for (int nt = 0; nt < kNT; ++nt) {
               const uint32_t word = step == 0 ? wb[nt].x : step == 1 ? wb[nt].y
                                   : step == 2 ? wb[nt].z : wb[nt].w;
               uint32_t b0, b1;
@@ -303,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
 #pragma unroll
         for (int step = 0; step < 2; ++step) {
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
+          for (int nt = 0; nt < kNT; ++nt) {
             uint32_t b0 = step ? wb[nt].z : wb[nt].x;
             uint32_t b1 = step ? wb[nt].w : wb[nt].y;
             if constexpr (kBits == 4) {
@@ -336,75 +394,106 @@ __global__ void __launch_bounds__(kThreads) quant_linear_kernel(
     __syncthreads();
     AccT* red = reinterpret_cast<AccT*>(smem);
     if (wk > 0) {
-      AccT* mine = red + (((wk - 1) * kWarpsN + wn) * 32 + lane) * 16;
+      AccT* mine = red + (((wk - 1) * kWarpsN + wn) * 32 + lane) * Lay::kPerLane;
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int b = 0; b < 2; ++b)
+        for (int b = 0; b < kNT; ++b)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) mine[(a * 2 + b) * 4 + e] = acc[a][b][e];
+          for (int e = 0; e < 4; ++e) mine[(a * kNT + b) * 4 + e] = acc[a][b][e];
     }
     __syncthreads();
-    if (wk > 0) return;
-    for (int g = 1; g < kWarpsK; ++g) {
-      const AccT* theirs = red + (((g - 1) * kWarpsN + wn) * 32 + lane) * 16;
+    if (wk == 0) {
+      for (int g = 1; g < kWarpsK; ++g) {
+        const AccT* theirs = red + (((g - 1) * kWarpsN + wn) * 32 + lane) * Lay::kPerLane;
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+        for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int b = 0; b < 2; ++b)
+          for (int b = 0; b < kNT; ++b)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[a][b][e] += theirs[(a * 2 + b) * 4 + e];
+            for (int e = 0; e < 4; ++e) acc[a][b][e] += theirs[(a * kNT + b) * 4 + e];
+      }
     }
   }
 
   // c0, c1: row gid, columns 2t, 2t+1; c2, c3: row gid + 8
+  if (wk == 0) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + 16 * mt + gid + 8 * (e >> 1);
-        const int n = n0 + 16 * wn + 8 * nt + 2 * tig + (e & 1);
-        if (m >= M || n >= N) continue;
-        AccT v = acc[mt][nt][e];
-        if constexpr (kA8 && kBits == 4) v >>= 4;  // exact: a sum of multiples of 16
-        if (splits > 1) {
-          part[((size_t)sp * M + m) * N + n] = v;
-        } else if constexpr (kA8) {
-          y[(size_t)m * N + n] = __float2bfloat16_rn((float)v * xs[m] * __bfloat162float(s[n]));
-        } else {
-          y[(size_t)m * N + n] = __float2bfloat16_rn(v * __bfloat162float(s[n]));
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + 16 * mt + gid + 8 * (e >> 1);
+          const int n = n0 + kWarpRows * wn + 8 * nt + 2 * tig + (e & 1);
+          if (m >= M || n >= N) continue;
+          AccT v = acc[mt][nt][e];
+          if constexpr (kA8 && kBits == 4) v >>= 4;  // exact: a sum of multiples of 16
+          if (splits > 1) {
+            part[((size_t)sp * M + m) * N + n] = v;
+          } else {
+            y[(size_t)m * N + n] = scaled<kA8>(v, xs, s, m, n);
+          }
         }
-      }
-}
-
-// One thread per output: the splits' partials added in split order, then
-// the scales. grid: ceil(M * N / kReduceThreads).
-template <bool kA8>
-__global__ void __launch_bounds__(kReduceThreads) reduce_splits_kernel(
-    const typename Acc<kA8>::T* __restrict__ part, const float* __restrict__ xs,
-    const __nv_bfloat16* __restrict__ s, __nv_bfloat16* __restrict__ y, int M, int N,
-    int splits) {
-  const size_t i = (size_t)blockIdx.x * kReduceThreads + threadIdx.x;
-  const size_t mn = (size_t)M * N;
-  if (i >= mn) return;
-  typename Acc<kA8>::T v = part[i];
-  for (int g = 1; g < splits; ++g) v += part[g * mn + i];
-  const int n = (int)(i % N);
-  if constexpr (kA8) {
-    y[i] = __float2bfloat16_rn((float)v * xs[i / N] * __bfloat162float(s[n]));
-  } else {
-    y[i] = __float2bfloat16_rn(v * __bfloat162float(s[n]));
   }
+  if (splits == 1) return;
+
+  // the split sum, in this launch: the tile's last block to arrive adds the
+  // partials in split order (fixed: the same for every M) and zeroes the
+  // tile's counter again
+  __syncthreads();  // every partial of this block is written, the ring idle
+  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+  int* arrived_last = reinterpret_cast<int*>(smem);
+  if (tid == 0) {
+    // release: the block's partials (ordered before by the barrier) before
+    // its arrival; acquire: every other block's partials before the sum
+    int before;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(before) : "l"(counter) : "memory");
+    *arrived_last = before == splits - 1;
+  }
+  __syncthreads();
+  if (!*arrived_last) return;
+  // kPer outputs per thread, consecutive threads on consecutive columns;
+  // the loads of kBatch splits are in flight together (from L2: ld.cg)
+  constexpr int kPer = kBM * kBN / kThreads;
+  constexpr int kRowStep = kThreads / kBN;  // output j: row m1 + j kRowStep, column n1
+  constexpr int kBatch = kPer >= 32 ? 1 : 32 / kPer;
+  const int m1 = m0 + tid / kBN, n1 = n0 + tid % kBN;
+  const size_t mn = (size_t)M * N;
+  const AccT* p1 = part + (size_t)m1 * N + n1;
+  AccT v[kPer];
+  for (int g0 = 0; g0 < splits; g0 += kBatch) {
+    AccT t[kBatch][kPer];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        t[b][j] = g0 + b < splits && m1 + j * kRowStep < M && n1 < N
+                      ? __ldcg(p1 + (g0 + b) * mn + j * kRowStep * N)
+                      : AccT(0);
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (g0 + b < splits) v[j] = g0 + b == 0 ? t[b][j] : v[j] + t[b][j];
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int m = m1 + j * kRowStep;
+    if (m < M && n1 < N) y[(size_t)m * N + n1] = scaled<kA8>(v[j], xs, s, m, n1);
+  }
+  if (tid == 0) *counter = 0;
 }
 
+template <bool kA8>
 int splits_for(int N, int K, int bits) {
   const int Kb = bits == 4 ? K / 2 : K;
   const int chunks = (Kb + kChunk - 1) / kChunk;
-  const int tiles = (N + kBN - 1) / kBN;
-  int g = (kTargetBlocks + tiles / 2) / tiles;
-  g = g < chunks / kMinChunksPerSplit ? g : chunks / kMinChunksPerSplit;
+  const int tiles = (N + Warps<kA8>::kBN - 1) / Warps<kA8>::kBN;
+  const int fill = chunks / Warps<kA8>::kMinChunksPerSplit;
+  int g = kWaveBlocks / tiles;  // at most one wave at one M tile
+  g = g < fill ? g : fill;
   g = g < kMaxSplits ? g : kMaxSplits;
   return g > 1 ? g : 1;
 }
@@ -428,47 +517,77 @@ cudaError_t raise_smem_limit() {
 
 template <int kBits, bool kA8>
 int launch(const void* x, const void* xs, const void* w, const void* s, void* y, void* part,
-           int M, int N, int K, cudaStream_t stream) {
+           void* counters, int M, int N, int K, cudaStream_t stream) {
   using AccT = typename Acc<kA8>::T;
   const cudaError_t attr = raise_smem_limit<kBits, kA8>();
   if (attr != cudaSuccess) return (int)attr;
   const int Kb = kBits == 4 ? K / 2 : K;
   const int n_chunks = (Kb + kChunk - 1) / kChunk;
-  const int splits = splits_for(N, K, kBits);
+  const int splits = splits_for<kA8>(N, K, kBits);
+  if (splits > 1 && (part == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  constexpr int kBN = Warps<kA8>::kBN;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  quant_linear_kernel<kBits, kA8><<<grid, kThreads, Tile<kBits, kA8>::kSmem, stream>>>(
+  quant_linear_kernel<kBits, kA8>
+      <<<grid, Warps<kA8>::kThreads, Tile<kBits, kA8>::kSmem, stream>>>(
       static_cast<const uint8_t*>(x), static_cast<const float*>(xs),
       static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(s),
-      static_cast<__nv_bfloat16*>(y), static_cast<AccT*>(part), M, N, K, n_chunks, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t mn = (size_t)M * N;
-  reduce_splits_kernel<kA8><<<(unsigned)((mn + kReduceThreads - 1) / kReduceThreads),
-                              kReduceThreads, 0, stream>>>(
-      static_cast<const AccT*>(part), static_cast<const float*>(xs),
-      static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(y), M, N, splits);
+      static_cast<__nv_bfloat16*>(y), static_cast<AccT*>(part), static_cast<int*>(counters),
+      M, N, K, n_chunks, splits);
   return (int)cudaGetLastError();
+}
+
+template <int kBits, bool kA8>
+int resident() {
+  cudaError_t err = raise_smem_limit<kBits, kA8>();
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, quant_linear_kernel<kBits, kA8>, Warps<kA8>::kThreads,
+        Tile<kBits, kA8>::kSmem);
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
 }
 
 }  // namespace
 
-// Splits of the K range for a weight [N, K] of `bits` (4 or 8): the
-// caller's scratch holds splits * M * N f32 (a16) or int32 (a8) elements
-// when it is above 1. Depends on N, K and bits only.
-extern "C" int sjd_quant_linear_splits(int N, int K, int bits) { return splits_for(N, K, bits); }
+// Splits of the K range for a weight [N, K] of `bits` (4 or 8) under K1
+// (a8 == 0) or K2: the caller's scratch holds splits * M * N f32 (a16) or
+// int32 (a8) elements when it is above 1. Depends on N, K, bits and a8 only.
+extern "C" int sjd_quant_linear_splits(int N, int K, int bits, int a8) {
+  return a8 ? splits_for<true>(N, K, bits) : splits_for<false>(N, K, bits);
+}
+
+// K1's (a8 == 0) or K2's block: its weight rows (dim 0) or activation rows
+// (dim 1); a launch of several splits counts arrivals on ceil(N / rows0) *
+// ceil(M / rows1) counters.
+extern "C" int sjd_quant_linear_tile(int dim, int a8) {
+  return dim != 0 ? kBM : a8 ? Warps<true>::kBN : Warps<false>::kBN;
+}
+
+// Blocks of the kernel for (bits, a8) the current device holds at once, or
+// minus a CUDA error.
+extern "C" int sjd_quant_linear_resident(int bits, int a8) {
+  if (bits == 4 && !a8) return resident<4, false>();
+  if (bits == 8 && !a8) return resident<8, false>();
+  if (bits == 4 && a8) return resident<4, true>();
+  if (bits == 8 && a8) return resident<8, true>();
+  return -(int)cudaErrorInvalidValue;
+}
 
 // a8 == 0: x bf16 [M, K], xs unused; a8 != 0: x int8 [M, K], xs f32 [M].
 // w: int8 [N, K] (bits 8) or packed uint8 [N, K/2] (bits 4); s bf16 [N];
-// y bf16 [M, N]; part: the scratch (NULL for one split). The weight bytes
-// per row must be a multiple of 16, x and w 16-byte aligned (checked by the
-// Python wrapper; bits other than 4 and 8 return cudaErrorInvalidValue).
+// y bf16 [M, N]; part: the scratch and counters: int32 zeros, one per
+// (N tile, M tile) (both NULL for one split). The weight bytes per row must
+// be a multiple of 16, x and w 16-byte aligned (checked by the Python
+// wrapper; bits other than 4 and 8 return cudaErrorInvalidValue).
 extern "C" int sjd_quant_linear(const void* x, const void* xs, const void* w, const void* s,
-                                void* y, void* part, int M, int N, int K, int bits, int a8,
-                                void* stream) {
+                                void* y, void* part, void* counters, int M, int N, int K,
+                                int bits, int a8, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits == 4 && !a8) return launch<4, false>(x, xs, w, s, y, part, M, N, K, st);
-  if (bits == 8 && !a8) return launch<8, false>(x, xs, w, s, y, part, M, N, K, st);
-  if (bits == 4 && a8) return launch<4, true>(x, xs, w, s, y, part, M, N, K, st);
-  if (bits == 8 && a8) return launch<8, true>(x, xs, w, s, y, part, M, N, K, st);
+  if (bits == 4 && !a8) return launch<4, false>(x, xs, w, s, y, part, counters, M, N, K, st);
+  if (bits == 8 && !a8) return launch<8, false>(x, xs, w, s, y, part, counters, M, N, K, st);
+  if (bits == 4 && a8) return launch<4, true>(x, xs, w, s, y, part, counters, M, N, K, st);
+  if (bits == 8 && a8) return launch<8, true>(x, xs, w, s, y, part, counters, M, N, K, st);
   return (int)cudaErrorInvalidValue;
 }

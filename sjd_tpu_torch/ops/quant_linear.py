@@ -11,10 +11,19 @@ the bf16 weights); on CPU tensors it runs the plain version beside it, the
 same function in PyTorch. There is no fallback from one to the other: CUDA
 tensors the kernel does not take raise.
 
-The kernel's split of the K range depends on N, K and the bits only, so a
-row's output does not depend on how many rows were multiplied with it. What
-bounds the kernels on the H100, and what their design does about it, is
-written at the top of the CUDA source.
+What bounds the kernels on the H100 is the bytes they move: the weights
+from HBM, the activations, which every block of weight rows stages again
+from L2, and the partial sums of a K range split over several blocks. K1
+takes 128 weight rows per block, so that each staged bf16 activation chunk
+feeds all of them (K2, whose activations are half the bytes, keeps 64), and
+both add the split K range's partials inside the same launch: each product
+is one launch. The split depends on N, K, the bits and the kernel only, so
+a row's output does not depend on how many rows were multiplied with it. The split sum counts arrivals on int32 counters
+that this module keeps, one buffer per device, zeroed: it grows only
+outside a CUDA graph capture (a call under capture that would need more
+raises: run the step once eagerly first, as the engine's warm-up does) and
+is never freed, since a captured graph may replay on it. The details are
+at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -35,17 +44,67 @@ def _lib():
     """The kernels' C entry points, typed once when the library is loaded."""
     lib = load("quant_linear")
     lib.sjd_quant_linear.restype = ctypes.c_int
-    lib.sjd_quant_linear.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    lib.sjd_quant_linear.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
-    lib.sjd_quant_linear_splits.restype = ctypes.c_int
-    lib.sjd_quant_linear_splits.argtypes = [ctypes.c_int] * 3
+    for fn, n_args in ((lib.sjd_quant_linear_splits, 4), (lib.sjd_quant_linear_tile, 2),
+                       (lib.sjd_quant_linear_resident, 2)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * n_args
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def splits(N: int, K: int, bits: int) -> int:
-    """The kernel's split of the K range for an [N, K] weight of ``bits``."""
-    return int(_lib().sjd_quant_linear_splits(N, K, bits))
+def splits(N: int, K: int, bits: int, a8: bool) -> int:
+    """K1's (``a8`` False) or K2's split of the K range for an [N, K]
+    weight of ``bits``."""
+    return int(_lib().sjd_quant_linear_splits(N, K, bits, int(a8)))
+
+
+@functools.lru_cache(maxsize=None)
+def tile(a8: bool) -> tuple:
+    """K1's or K2's block: (weight rows, activation rows)."""
+    lib = _lib()
+    return int(lib.sjd_quant_linear_tile(0, int(a8))), int(lib.sjd_quant_linear_tile(1, int(a8)))
+
+
+def grid(M: int, N: int, K: int, bits: int, a8: bool) -> tuple:
+    """K1's or K2's grid for x [M, K] against an [N, K] weight: (N tiles,
+    M tiles, splits)."""
+    bn, bm = tile(a8)
+    return -(-N // bn), -(-M // bm), splits(N, K, bits, a8)
+
+
+def resident(bits: int, a8: bool) -> int:
+    """Blocks of the kernel the current device holds at once."""
+    n = int(_lib().sjd_quant_linear_resident(bits, int(a8)))
+    if n < 0:
+        raise RuntimeError(f"quant_linear occupancy query failed: CUDA error {-n}")
+    return n
+
+
+# one zeroed int32 counter buffer per device index; the ones it replaced
+# stay alive, since a captured graph may still replay on them
+_COUNTERS: dict = {}
+_RETIRED: list = []
+
+
+def counters(dev: torch.device, n: int) -> Tensor:
+    """At least ``n`` zeroed arrival counters on ``dev``. Grows the buffer
+    only outside a capture: a call under capture that needs more raises."""
+    buf = _COUNTERS.get(dev.index)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"quant_linear: the split sum needs {n} arrival counters on {dev} and has "
+            f"{0 if buf is None else buf.numel()}; a buffer is not allocated inside a CUDA "
+            "graph capture: run the same call once eagerly before capturing it")
+    if buf is not None:
+        _RETIRED.append(buf)
+    size = max(n, 4096 if buf is None else 2 * buf.numel())
+    buf = torch.zeros(size, dtype=torch.int32, device=dev)
+    _COUNTERS[dev.index] = buf
+    return buf
 
 
 def unpack_int4(q4p: Tensor) -> Tensor:
@@ -105,14 +164,15 @@ def _launch(x2: Tensor, xs: Tensor, q: Tensor, s: Tensor, bits: int, a8: bool) -
         _check("xs", xs, (M,), torch.float32, dev)
     if x2.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("quant_linear: x and q must be 16-byte aligned")
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    g = splits(N, K, bits)
-    part = None
+    tiles_n, tiles_m, g = grid(M, N, K, bits, a8)
+    part = count = None
     if g > 1:
+        count = counters(dev, tiles_n * tiles_m)
         part = torch.empty((g, M, N), dtype=torch.int32 if a8 else torch.float32, device=dev)
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rc = _lib().sjd_quant_linear(ptr(x2), ptr(xs if a8 else None), ptr(q), ptr(s), ptr(y),
-                                 ptr(part), M, N, K, bits, int(a8), stream)
+                                 ptr(part), ptr(count), M, N, K, bits, int(a8), stream)
     if rc != 0:
         raise RuntimeError(f"quant_linear kernel launch failed: CUDA error {rc}")
     return y

@@ -371,10 +371,13 @@ def _quant_inputs(cuda, M, N, K, bits, seed=0):
 
 # (M, N, K): the decode window at the 7B's widths, the serve window, the
 # MLP's down projection, ragged rows and columns with a partial last chunk,
-# one row, and a prefill's rows
+# one row, a prefill's rows, and the down projection's K with N not a
+# multiple of the block's 128 weight rows (86 int4 chunks, which the split
+# count does not divide)
 QUANT_CASES = {
     "decode": (32, 4096, 4096), "serve": (64, 11008, 4096), "down": (32, 4096, 11008),
     "ragged": (37, 200, 288), "one_row": (1, 72, 160), "prefill": (150, 1000, 4096),
+    "ragged_down": (32, 1000, 11008),
 }
 
 
@@ -430,6 +433,80 @@ def test_quant_linear_rows_do_not_depend_on_the_row_count(cuda, shape, a8):
     for m in (1, 32, 64):
         assert torch.equal(run(x[:m].contiguous()), full[:m]), m
     assert torch.equal(run(x[37:38].contiguous()), full[37:38])
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
+def test_quant_linear_ragged_cases_are_ragged(cuda, a8):
+    """ragged_down's N is not a multiple of the block's weight rows, and its
+    chunks are not a multiple of its splits: the edges the cases must reach."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    M, N, K = QUANT_CASES["ragged_down"]
+    tiles_n, _, g = ql.grid(M, N, K, 4, a8)
+    assert N % ql.tile(a8)[0] and g > 1 and (K // 2 // 64) % g, (ql.tile(a8), g)
+
+
+def _wq_split_call(cuda, a8, seed=5):
+    """A product at wq's shape in a generate window (32 rows, int4 4096 x
+    4096: several splits), as a call without arguments, and x's device."""
+    from sjd_tpu_torch.models.transformer import _quantize_act
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    M, N, K = 32, 4096, 4096
+    assert ql.splits(N, K, 4, a8) > 1
+    x, q, s = _quant_inputs(cuda, M, N, K, 4, seed=seed)
+    if a8:
+        xq, xs = _quantize_act(x)
+        return (lambda: ql.quant_linear_a8(xq, xs, q, s, bits=4)), x.device
+    return (lambda: ql.quant_linear_a16(x, q, s, bits=4)), x.device
+
+
+@pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
+def test_quant_linear_graph_replays_equal_the_eager_call(cuda, a8):
+    """The split sum inside the launch, under a CUDA graph: each of three
+    replays equals the eager call bit for bit, and every arrival counter is
+    0 again afterwards (the next launch and replay find them so)."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    call, dev = _wq_split_call(cuda, a8)
+    want = call()  # eager: sizes the counters before the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(call(), want)
+    torch.cuda.synchronize()
+    assert not ql.counters(dev, 1).any()
+
+
+def test_quant_linear_capture_does_not_grow_the_counters(cuda, monkeypatch):
+    """A call under capture that needs a new or a larger counter buffer
+    raises (the buffer is never allocated inside a graph's pool); the same
+    call outside a capture grows it and runs."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    call, dev = _wq_split_call(cuda, False)
+    tiles_n, tiles_m, _ = ql.grid(32, 4096, 4096, 4, False)
+    small = torch.zeros(tiles_n * tiles_m - 1, dtype=torch.int32, device=dev)
+    for have in ({}, {dev.index: small}):
+        monkeypatch.setattr(ql, "_COUNTERS", dict(have))
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                call()
+        assert ql._COUNTERS.get(dev.index) is have.get(dev.index)  # not grown
+    y = call()
+    torch.cuda.synchronize()
+    assert ql._COUNTERS[dev.index].numel() >= tiles_n * tiles_m
+    assert torch.isfinite(y.float()).all()
 
 
 def test_quant_linear_refuses_what_the_kernel_does_not_take(cuda):
