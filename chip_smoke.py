@@ -55,15 +55,42 @@ and the quantized weights (csrc/quant_linear.cu):
   12. widths_w4a16 - phase 9 on W4A16 weights, held: the tokens must not
                change with the width.
 
-Each of the paths 6-8, 10-11 starts from kernel launch counts of 0 and
+and checkpoints from disk, image prompts, streaming and the 34B:
+
+  13. ckpt    - Lumina-mGPT-7B written as 3 safetensors shards at full width
+               and depth (seeded random bf16 weights, HF names, qk-norm in
+               the [mp, D] layout) and the full Chameleon VQGAN as a
+               "state_dict"-nested .ckpt, under build/ (removed after),
+               then read by load_lumina_mgpt(ckpt_dir=, vq_ckpt=,
+               tokenizer=) with a duck-typed IMGIMG tokenizer: no fallback,
+               both trees on the card bit-equal to the written ones; bytes,
+               write and load seconds (warm page cache), host RSS peak
+               during the load, peak device memory;
+  14. ckpt_load_w4a16, ckpt_generate - the same files with quantize=4
+               (equilibrated W4A16, int8 head), one 768px image as in 7;
+  15. image_input - a 512 x 512 array through the VQ encoder on the card
+               into a FlexAR block (header against grid and a direct
+               encode; codebook rows encode to their own ids), then
+               sample_i2i_fn to a 768px image;
+  16. stream  - StreamingBatcher on that model: 3 slots, chunks of 64, 6
+               requests at 256px from 2 threads at staggered times, one
+               prompt left-padded; each equal to its solo run;
+  17. chameleon_34b - the 34B at W4A16 on random weights: both TPU kernels
+               at its shapes (64 query heads over 8 KV heads, 48 layers,
+               int8 cache, fills 150 and 2400), then phase 6's check of 32
+               replayed steps at 768px.
+
+Each of the paths 6-8, 10-11 and 14-17 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
 (GraphStats.executed, which each graph check's profile holds to the
-device's trace). They must be per_forward()'s per forward with T <= 32: 32
-of each TPU kernel, and on quantized weights 225 quantized products (7 per
-layer and the head), each one launch of quant_linear_kernel: the profile
-must show no reduce_splits_kernel.
+device's trace). They must be per_forward()'s per forward with T <= 32: one of each TPU
+kernel per layer (32 on the 7B, 48 on the 34B), and on quantized weights
+7 quantized products per layer and the head (225 on the 7B, 337 on the
+34B), each one launch of quant_linear_kernel: the profile must show no
+reduce_splits_kernel. A prefill over 32 tokens (image_input's) takes the
+plain path, with the quantized products still on the kernel.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failed phase raises
@@ -78,6 +105,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -180,9 +208,10 @@ def phase_build():
          dir=str(_build.BUILD_DIR), ptxas=usage)
 
 
-def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int):
+def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
+                   Hkv: int = 32, NL: int = 32, layer: int = 17):
     """``fused_epilogue_into_cache`` against its plain version over a whole
-    32-layer int8 cache filled with sentinels, at ``S`` rows and per-row
+    ``NL``-layer int8 cache filled with sentinels, at ``S`` rows and per-row
     fills ``ends``: the window's rows within tolerance, every other row
     unchanged. Times both; returns the case's row."""
     import torch
@@ -190,7 +219,7 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int):
     from sjd_tpu_torch.ops.fused_epilogue import (
         fused_epilogue_into_cache, fused_epilogue_into_cache_plain)
 
-    T, H, Hkv, D, NL, layer = 16, 32, 32, 128, 32, 17
+    T, D = 16, 128
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*shape):
@@ -275,11 +304,13 @@ def phase_epilogue(dev):
                 bound_by=main["bound_by"], library_ms=None)
 
 
-def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: int):
-    """``decode_attention`` against its plain version on a 32-layer cache
-    of ``S`` rows and ``L`` rows each, under the mask ``valid``, for each
-    per-row fill in ``fills`` and each cache kind; times the kernel, the
-    plain version and SDPA on the same layer. Returns the rows."""
+def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: int,
+                     H: int = 32, Hkv: int = 32, NL: int = 32, layer: int = 17):
+    """``decode_attention`` against its plain version on an ``NL``-layer
+    cache of ``S`` rows and ``L`` rows each, under the mask ``valid``, for
+    each per-row fill in ``fills`` and each cache kind; times the kernel,
+    the plain version and SDPA (its GQA form where Hkv < H) on the same
+    layer. Returns the rows."""
     import torch
     import torch.nn.functional as F
 
@@ -287,7 +318,7 @@ def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: 
         _entry, decode_attention, decode_attention_plain, decode_masks)
     from sjd_tpu_torch.ops.fused_epilogue import quantize_rows
 
-    W, H, Hkv, D, NL, layer = 16, 32, 32, 128, 32, 17
+    W, D = 16, 128
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((S, W, H, D), generator=g, device=dev).to(torch.bfloat16)
     kq, ks = quantize_rows(torch.randn((S, NL, L, Hkv, D), generator=g, device=dev))
@@ -327,7 +358,7 @@ def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: 
             qs, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
             mask = decode_masks(cache_end, valid, W, L)[:, None]
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, kt, vt, attn_mask=mask))
+                qs, kt, vt, attn_mask=mask, enable_gqa=Hkv < H))
             live = [min(e + W, L) for e in ends]  # each row's attended cache rows
             kv_bytes = 1 if kind == "int8" else 2
             n_bytes = (2 * sum(live) * Hkv * D * kv_bytes
@@ -1019,6 +1050,459 @@ def phase_serve(dev, model, size: int = 512, chunk_steps: int = 64, rows_given: 
               f"{name}: {n} launches ran in serve for {decode_forwards} decode forwards")
 
 
+# -- checkpoints from disk, image prompts, streaming, the 34B -----------------
+
+CKPT_SHARDS = 3
+
+
+class ImgTokenizer:
+    """A tokenizer for the phases below, with the Chameleon layout the
+    loader reads: ``get_vocab`` names every codebook id as an IMGIMG token,
+    a seeded permutation onto the image-token span [4, 4 + 8192), and
+    ``encode`` gives 12 text ids (9000 + 4000 classes) from a hash of the
+    whole text, so every text prompt is 15 tokens with its image header."""
+
+    def __init__(self, n_embed: int = 8192, seed: int = 3):
+        import numpy as np
+
+        from sjd_tpu_torch.data.vocab_translation import image_token_name
+
+        perm = np.random.default_rng(seed).permutation(n_embed)
+        self._vocab = {image_token_name(i): int(4 + p) for i, p in enumerate(perm)}
+
+    def get_vocab(self):
+        return dict(self._vocab)
+
+    def encode(self, text):
+        import zlib
+
+        return [9000 + zlib.crc32(f"{i}:{text}".encode()) % 4000 for i in range(12)]
+
+
+def _hf_items(src: dict, cfg, mp: int):
+    """The HF (Chameleon) state dict of a port decoder tree, one tensor at a
+    time: (name, tensor on the card); qk-norm affines in the vendored
+    ``[mp, D]`` layout (the tree's heads repeat each shard's row)."""
+    lay = src["layers"]
+    yield "model.embed_tokens.weight", src["embed"]
+    for i in range(cfg.num_layers):
+        base = f"model.layers.{i}."
+        for ours, theirs in (("attn_norm", "input_layernorm"), ("mlp_norm",
+                                                                "post_attention_layernorm")):
+            yield base + theirs + ".weight", lay[ours][i]
+        for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                             ("wo", "o_proj")):
+            yield base + f"self_attn.{theirs}.weight", lay[ours][i]
+        for ours, theirs in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                             ("w_down", "down_proj")):
+            yield base + f"mlp.{theirs}.weight", lay[ours][i]
+        for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads)):
+            for part, suffix in (("scale", "weight"), ("bias", "bias")):
+                t = lay[f"{name}_norm_{part}"][i]  # [heads, D]
+                yield base + f"self_attn.{name}_norm.{suffix}", t[:: heads // mp]
+    yield "model.norm.weight", src["final_norm"]
+    yield "lm_head.weight", src["lm_head"]
+
+
+def _write_safetensors(path: str, items) -> int:
+    """A ``.safetensors`` file written here (not by the reader under test):
+    the 8-byte header length, the JSON header padded to 8 bytes, each
+    tensor's bytes in order. ``items``: (name, tensor) pairs, each copied to
+    the host only when written. Returns the bytes written."""
+    import struct
+
+    import torch
+
+    dtypes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in items:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": dtypes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for _, t in items:
+            f.write(t.detach().contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def _taming_state_dict(vq: dict, cfg) -> dict:
+    """The taming-named VQGAN state dict of a port VQ tree (CPU tensors)."""
+    n = cfg.num_resolutions
+    sd = {"quantize.embedding.weight": vq["codebook"]}
+
+    def conv(name, w, b):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = w, b
+
+    def res(base, p):
+        for k in ("1", "2"):
+            conv(f"{base}.norm{k}", p[f"norm{k}_scale"], p[f"norm{k}_bias"])
+            conv(f"{base}.conv{k}", p[f"conv{k}_w"], p[f"conv{k}_b"])
+        if "nin_w" in p:
+            conv(f"{base}.nin_shortcut", p["nin_w"], p["nin_b"])
+
+    def attn(base, p):
+        conv(f"{base}.norm", p["norm_scale"], p["norm_bias"])
+        for ours, theirs in (("q", "q"), ("k", "k"), ("v", "v"), ("proj", "proj_out")):
+            conv(f"{base}.{theirs}", p[f"{ours}_w"], p[f"{ours}_b"])
+
+    for part, levels, key in (("encoder", "down", "downsample"), ("decoder", "up", "upsample")):
+        p = vq[part]
+        conv(f"{part}.conv_in", p["conv_in_w"], p["conv_in_b"])
+        res(f"{part}.mid.block_1", p["mid_block1"])
+        attn(f"{part}.mid.attn_1", p["mid_attn"])
+        res(f"{part}.mid.block_2", p["mid_block2"])
+        conv(f"{part}.norm_out", p["norm_out_scale"], p["norm_out_bias"])
+        conv(f"{part}.conv_out", p["conv_out_w"], p["conv_out_b"])
+        for idx, level in enumerate(p[levels]):
+            base = f"{part}.{levels}.{idx if part == 'encoder' else n - 1 - idx}"
+            for j, r in enumerate(level["res"]):
+                res(f"{base}.block.{j}", r)
+            for j, a in enumerate(level.get("attn", [])):
+                attn(f"{base}.attn.{j}", a)
+            if key in level:
+                conv(f"{base}.{key}.conv", level[key]["conv_w"], level[key]["conv_b"])
+    for name in ("quant_conv", "post_quant_conv"):
+        conv(name, vq[f"{name}_w"], vq[f"{name}_b"])
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+class _RssSampler:
+    """The process's largest resident set seen every 10 ms while it runs
+    (``/proc/self/statm``): a load's own host peak, which ``ru_maxrss``
+    (the process's peak since it started) cannot give."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        while not self._stop.is_set():
+            with open("/proc/self/statm") as f:
+                self.peak = max(self.peak, int(f.read().split()[1]) * page)
+            self._stop.wait(0.01)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def phase_ckpt(dev, root: str):
+    """Lumina-mGPT-7B as checkpoint files at full width and depth (seeded
+    random bf16 weights, HF names, qk-norm in the [mp, D] layout with mp = 1,
+    CKPT_SHARDS safetensors shards written by _write_safetensors) and the
+    full Chameleon VQGAN as a "state_dict"-nested .ckpt, then both through
+    load_lumina_mgpt(ckpt_dir=, vq_ckpt=, tokenizer=): no fallback left,
+    and the decoder and VQ trees on the card bit-equal to the trees the
+    files were written from. Returns (ckpt_dir, vq_path, tokenizer)."""
+    import torch
+
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.models.chameleon import chameleon_config
+    from sjd_tpu_torch.models.transformer import init_params
+    from sjd_tpu_torch.models.vq import CHAMELEON_VQ, init_vq_params
+    from sjd_tpu_torch.utils.profiling import host_peak_rss_bytes, time_block
+
+    cfg = chameleon_config("7B")
+    src = init_params(5, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def near_one(*shape):
+        return (1 + 0.1 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+
+    lay, n, D = src["layers"], cfg.num_layers, cfg.head_dim
+    lay["attn_norm"], lay["mlp_norm"] = near_one(n, cfg.hidden_size), near_one(n, cfg.hidden_size)
+    src["final_norm"] = near_one(cfg.hidden_size)
+    for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads)):
+        lay[f"{name}_norm_scale"] = near_one(n, 1, D).expand(n, heads, D).contiguous()
+        lay[f"{name}_norm_bias"] = (near_one(n, 1, D) - 1).expand(n, heads, D).contiguous()
+    ckpt_dir = os.path.join(root, "lumina_mgpt_7b")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    items = list(_hf_items(src, cfg, mp=1))
+    sizes = [t.numel() * t.element_size() for _, t in items]
+    per_shard = sum(sizes) / CKPT_SHARDS
+    shards, cur, acc = [], [], 0
+    for item, size in zip(items, sizes):
+        if cur and acc + size > per_shard * (len(shards) + 1) and len(shards) < CKPT_SHARDS - 1:
+            shards.append(cur)
+            cur = []
+        cur.append(item)
+        acc += size
+    shards.append(cur)
+    vq_src = init_vq_params(7, CHAMELEON_VQ, device=dev)
+    vq_path = os.path.join(root, "vqgan.ckpt")
+    times: dict = {}
+    with time_block("write", times):
+        written = sum(_write_safetensors(
+            os.path.join(ckpt_dir, f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"), sh)
+            for k, sh in enumerate(shards))
+        torch.save({"state_dict": _taming_state_dict(vq_src, CHAMELEON_VQ)}, vq_path)
+    written += os.path.getsize(vq_path)
+    del items, shards, cur
+    tok = ImgTokenizer()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = host_peak_rss_bytes()
+    with _RssSampler() as rss, time_block("load", times):
+        model = load_lumina_mgpt(ckpt_dir=ckpt_dir, vq_ckpt=vq_path, tokenizer=tok,
+                                 target_size=TARGET_SIZE, device=dev)
+    equal = _tree_equal(model.params, src)
+    vq_equal = _tree_equal(model.extras["vq_params"], vq_src)
+    emit("ckpt", layers=cfg.num_layers, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+         files=sorted(os.listdir(ckpt_dir)) + [os.path.basename(vq_path)],
+         bytes_written=written, write_s=times["write"],
+         load_s=times["load"], load_note="files just written: the page cache is warm",
+         load_gb_per_s=written / times["load"] / 1e9,
+         host_rss_peak_during_load_gb=rss.peak / 1e9,
+         host_ru_maxrss_gb_before=rss_before / 1e9,
+         host_ru_maxrss_gb_after=host_peak_rss_bytes() / 1e9,
+         peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         smoke=model.smoke, smoke_reasons=model.extras["smoke_reasons"],
+         decoder_bit_equal=equal, vq_bit_equal=vq_equal)
+    check(model.smoke is False, f"the checkpoint load kept fallbacks: "
+                                f"{model.extras['smoke_reasons']}")
+    check(equal, "the decoder read from disk differs from the tree written")
+    check(vq_equal, "the VQGAN read from disk differs from the tree written")
+    del model, src, vq_src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ckpt_dir, vq_path, tok
+
+
+def phase_ckpt_load_w4a16(dev, ckpt_dir, vq_path, tok):
+    """The same files with quantize=4: equilibrated W4A16 with an int8 head,
+    quantized on the card after the port."""
+    import torch
+
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.models.transformer import weight_bytes
+    from sjd_tpu_torch.utils.profiling import time_block
+
+    torch.cuda.reset_peak_memory_stats()
+    times: dict = {}
+    with time_block("load", times):
+        model = load_lumina_mgpt(ckpt_dir=ckpt_dir, vq_ckpt=vq_path, tokenizer=tok,
+                                 target_size=TARGET_SIZE, quantize=4, device=dev)
+    wq = model.params["layers"]["wq"]
+    emit("ckpt_load_w4a16", load_s=times["load"], weight_bytes=weight_bytes(model.params),
+         peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         wq_leaf=sorted(wq), smoke=model.smoke)
+    check(model.smoke is False and set(wq) == {"q4p", "s"}
+          and set(model.params["lm_head"]) == {"q", "s"}, "not a W4A16 checkpoint load")
+    return model
+
+
+def _executed(eng):
+    from sjd_tpu_torch.ops import launch_counts
+
+    return eng.stats.executed(launch_counts())
+
+
+def phase_image_input(dev, model, size: int = 512):
+    """An image prompt on the checkpoint's W4A16 model: a ``size`` x ``size``
+    array through the port's VQ encoder on the card (full Chameleon VQ
+    widths) into a FlexAR block, then sample_i2i_fn to a 768px image. Holds
+    the block's size header to its grid and to a direct encode, the
+    codebook's own rows to their ids, and the launches: each TPU kernel per
+    decode forward (the ~1080-token prefill takes the plain path) and every
+    quantized product on every forward."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.data.item_processor import image_grid_from_block, size_token_id
+    from sjd_tpu_torch.models.vq import codebook_encode, encode
+    from sjd_tpu_torch.utils.profiling import GenerationStats, time_block
+
+    proc, vq, vq_cfg = (model.extras[k] for k in ("item_processor", "vq_params", "vq_cfg"))
+    rng = np.random.default_rng(12)
+    # a smooth image with noise, in [-1, 1]
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.stack([np.sin(6 * xx), np.cos(5 * yy), xx * yy * 2 - 1], -1)
+    img = np.clip(img + 0.1 * rng.standard_normal(img.shape), -1, 1).astype(np.float32)
+    times: dict = {}
+    with time_block("encode", times):
+        block = proc.process_image(img)
+    grid = image_grid_from_block(block, mapping=model.extras["mapping"])
+    with torch.no_grad():
+        direct = encode(vq, vq_cfg, torch.from_numpy(img[None]).to(dev))[0].cpu().numpy()
+        rows = torch.as_tensor(rng.choice(vq_cfg.n_embed, 512, replace=False), device=dev)
+        own = codebook_encode(vq_cfg, vq["codebook"], vq["codebook"][rows].reshape(1, 1, 512, -1))
+    own_ok = bool(torch.equal(own[0].long(), rows))
+    f = size // 16
+    header_ok = (block[1] == block[2] == size_token_id(size) and grid.shape == (f, f)
+                 and len(block) == 3 + f * (f + 1) + 1)
+    eng = model.engine
+    table = per_forward(model.params, eng.model_cfg)
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    with time_block("generate", times):
+        out = model.extras["sample_i2i_fn"]("<|image|> the same scene at night", [img], 0)
+    res = model.extras["last_result"]
+    launches = _executed(eng)
+    nfe = int(res.nfe)
+    stats = GenerationStats.from_result(res, times["generate"])
+    expected = {k: n * (nfe if k.startswith("quant") else nfe - 1) for k, n in table.items()}
+    emit("image_input", image=[size, size], block_tokens=len(block),
+         header=block[:3], grid=list(grid.shape), encode_s=times["encode"],
+         grid_equals_direct_encode=bool(np.array_equal(grid.reshape(-1), direct)),
+         codebook_rows_own_ids=own_ok, prompt_tokens=int(res.length[0]) - int(res.gen_count[0]),
+         nfe=nfe, tokens_generated=stats.tokens, accept_rate=stats.accept_rate,
+         wall_s=stats.wall_s, image_shape=list(out.shape), launches=launches,
+         launches_expected=expected, captures=eng.stats.captures,
+         graph_replays=eng.stats.replays)
+    check(header_ok, f"the block's header {block[:3]} and grid {grid.shape} disagree")
+    check(int(res.length[0]) - int(res.gen_count[0]) > len(block), "the prompt lacks the block")
+    check(bool(np.array_equal(grid.reshape(-1), direct)), "the block's grid is not the encode")
+    check(own_ok, "codebook rows did not encode to their own ids")
+    check(tuple(out.shape) == (TARGET_SIZE, TARGET_SIZE, 3) and str(out.dtype) == "uint8",
+          f"image is {out.shape} {out.dtype}")
+    for name, n in launches.items():
+        check(n == expected[name], f"{name}: {n} launches in image_input, not {expected[name]}")
+
+
+def phase_stream(dev, model, size: int = 256, slots: int = 3, chunk_steps: int = 64):
+    """StreamingBatcher on the checkpoint's W4A16 model: 6 requests at
+    ``size`` px from 2 threads at staggered times, one prompt shorter than
+    the bucket (left-padded), each with its own seed. Each request's tokens
+    must equal the same request run alone with the same seed (W4A16 rows do
+    not depend on the batch width). The launch counts start at 0 before the
+    batcher and are read after its close: each kernel per forward (every
+    forward here has T <= 32) times the forwards (prefills, refills, decode
+    steps). Tokens per second is a smoke figure only."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.serving import StreamingBatcher, seed_generators
+    from sjd_tpu_torch.data.item_processor import size_token_id
+    from sjd_tpu_torch.models.chameleon import IMAGE_END_ID, IMAGE_START_ID, lumina_engine
+
+    tok = model.extras["item_processor"]
+    header = [IMAGE_START_ID, size_token_id(size), size_token_id(size)]
+    captions = ["a red fox", "a lighthouse at dusk", "three green apples", "a city in rain",
+                "an old map", "a small boat"]
+    prompts = [tok.t2i_prompt_ids(c, size) + header for c in captions]
+    prompts[3] = prompts[3][4:]  # a short prompt: 11 tokens in a 15-token bucket
+    width = max(map(len, prompts))
+    seeds = [501 + i for i in range(6)]
+    eng = lumina_engine(target_size=size, model_cfg=model.engine.model_cfg, device=dev)
+    eng.config = dataclasses.replace(eng.config, eos_id=IMAGE_END_ID)
+    table = per_forward(model.params, eng.model_cfg)
+    _zero_launch_counts()
+    handles = {}
+    t0 = time.time()
+    sb = StreamingBatcher(eng, model.params, batch=slots, chunk_steps=chunk_steps,
+                          prompt_width=width)
+
+    def client(which, delay):
+        for k in which:
+            time.sleep(delay)
+            handles[k] = sb.submit(prompts[k], seed=seeds[k])
+
+    threads = [threading.Thread(target=client, args=([0, 2, 4], 0.2)),
+               threading.Thread(target=client, args=([1, 3, 5], 0.7))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    done = {k: h.wait(timeout=600) for k, h in handles.items()}
+    stats = sb.stats()
+    sb.close()
+    serve_s = time.time() - t0
+    launches = _executed(eng)
+    forwards = eng.stats.eager_steps + eng.stats.replays + stats["batches"] + stats["refills"]
+    same = {}
+    for k in range(6):
+        pad = width - len(prompts[k])
+        ids = torch.tensor([[0] * pad + prompts[k]], dtype=torch.int32, device=dev)
+        mask = torch.tensor([[False] * pad + [True] * len(prompts[k])], device=dev)
+        alone = eng.generate(model.params, seed_generators([seeds[k]], dev), ids,
+                             prompt_mask=mask)
+        want = alone.tokens[0, :int(alone.length[0])].cpu().numpy()
+        same[k] = bool(np.array_equal(want, done[k].tokens))
+    gen_tokens = sum(d.gen_count for d in done.values())
+    emit("stream", size=size, slots=slots, chunk_steps=chunk_steps, requests=6,
+         prompt_width=width, prompt_lengths=[len(p) for p in prompts], seeds=seeds,
+         stats=stats, gen_counts=[done[k].gen_count for k in range(6)],
+         equal_to_solo=same, serve_s=serve_s, smoke_gen_tokens_per_s=gen_tokens / serve_s,
+         forwards=forwards, launches=launches,
+         launches_expected={k: n * forwards for k, n in table.items()},
+         captures=eng.stats.captures, graph_replays=eng.stats.replays,
+         eager_steps=eng.stats.eager_steps)
+    check(sorted(done) == list(range(6)) and stats["completed"] == 6,
+          f"not every request completed: {stats}")
+    check(all(same.values()), f"requests differ from their solo runs: {same}")
+    for name, n in launches.items():
+        check(n == table[name] * forwards, f"{name}: {n} launches in stream for {forwards} "
+                                           "forwards")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_chameleon_34b(dev):
+    """Chameleon-34B (48 layers, 64 query heads over 8 KV heads, d 8192, ff
+    22016, swin-norm) at W4A16 on random weights, quantized leaf by leaf as
+    drawn: both TPU kernels against their plain versions at its shapes
+    (int8 cache, fills 150 and 2400), then phase_graph's check of 32
+    replayed decode steps at 768px against 32 eager ones, with each
+    kernel's launches per forward (48 of each TPU kernel, 337 of K1)."""
+    import torch
+
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.models.transformer import weight_bytes
+    from sjd_tpu_torch.utils.profiling import time_block
+
+    torch.cuda.reset_peak_memory_stats()
+    times: dict = {}
+    with time_block("load", times):
+        model = load_lumina_mgpt(size="34B", quantize=4, target_size=TARGET_SIZE, device=dev)
+    cfg = model.engine.model_cfg
+    H, Hkv, NL = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    emit("chameleon_34b_load", load_s=times["load"], layers=NL, heads=H, kv_heads=Hkv,
+         hidden=cfg.hidden_size, ff=cfg.intermediate_size, swin_norm=cfg.swin_norm,
+         weight_bytes=weight_bytes(model.params),
+         peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check((NL, H, Hkv, cfg.hidden_size, cfg.swin_norm) == (48, 64, 8, 8192, True),
+          f"not the 34B config: {cfg}")
+    S, L, P = 2, 2560, 15
+    rows = [_epilogue_case(dev, "34b", S, L, (2400, 150), 21, H=H, Hkv=Hkv, NL=NL, layer=47)]
+    valid = torch.ones((S, L), dtype=torch.bool, device=dev)
+    valid[1, :P - 1] = False
+    rows += _attention_cases(dev, "34b", S, L, valid, [(150, 150), (2400, 2400)], ("int8",),
+                             22, H=H, Hkv=Hkv, NL=NL, layer=47)
+    ids = model.extras["prompt_ids_fn"](PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    phase_graph(dev, model.params, cfg, ids, label="chameleon_34b")
+    emit("chameleon_34b_memory", peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1069,6 +1553,25 @@ def main() -> int:
     phase_graph(dev, qmodel.params, qcfg, ids, label="quant_graph")
     a16 = phase_generate(dev, qmodel, label="quant_generate")
     phase_widths(dev, qmodel.params, qcfg, "widths_w4a16", hold=True)
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    # checkpoints from disk: written under build/ (git-ignored), removed
+    # once read
+    root = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ckpt_dir, vq_path, tok = phase_ckpt(dev, root)
+        cmodel = phase_ckpt_load_w4a16(dev, ckpt_dir, vq_path, tok)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_generate(dev, cmodel, label="ckpt_generate")
+    phase_image_input(dev, cmodel)
+    phase_stream(dev, cmodel)
+    del cmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_chameleon_34b(dev)
     for k in kernels:
         k["launches"] = {"quant_linear_a16": a16, "quant_linear_a8": a8}.get(
             k["name"], launches)[k["name"]]

@@ -2,9 +2,10 @@
 Decoding for autoregressive text-to-image), for one NVIDIA H100.
 
 The layout mirrors ``sjd_tpu/``: ``core/`` (engine, sampling, grammar,
-acceptance), ``models/`` (decoder, Chameleon/Lumina family, VQ decoder),
-``ops/`` (the hand-written Hopper kernels, sources in ``csrc/``), ``data/``
-and ``loader.py``. ``convert.py`` turns the JAX package's parameters into
+acceptance, batching), ``models/`` (decoder, Chameleon/Lumina family, VQ
+encoder and decoder), ``ops/`` (the hand-written Hopper kernels, sources in
+``csrc/``), ``data/`` (prompting), ``utils/`` (checkpoint reading and
+porting, tokenizer, profiling, logging) and ``loader.py``. ``convert.py`` turns the JAX package's parameters into
 this package's. Nothing here imports JAX or ``sjd_tpu``.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when

@@ -116,16 +116,18 @@ def params_from_jax(np_tree: dict, cfg: DecoderConfig, device=None) -> dict:
 
 
 def vq_params_from_jax(np_tree: dict, cfg: VQConfig, device=None) -> dict:
-    """sjd_tpu taming VQ params (numpy leaves) -> the port's decoder-side
-    params, conv weights HWIO -> OIHW."""
+    """sjd_tpu taming VQ params (numpy leaves) -> the port's params (the
+    decoder half, and the encoder half where the tree has one), conv
+    weights HWIO -> OIHW."""
     dev = resolve_device(device)
 
     def leaf(a):
         t = tensor_from_numpy(a, dev)
         return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
 
-    keep = ("decoder", "codebook", "post_quant_conv_w", "post_quant_conv_b")
-    params = {k: _tree(np_tree[k], leaf) for k in keep}
+    keep = ("decoder", "codebook", "post_quant_conv_w", "post_quant_conv_b",
+            "encoder", "quant_conv_w", "quant_conv_b")
+    params = {k: _tree(np_tree[k], leaf) for k in keep if k in np_tree}
     if tuple(params["codebook"].shape) != (cfg.n_embed, cfg.embed_dim):
         raise ValueError(f"codebook is {tuple(params['codebook'].shape)}, config "
                          f"wants {(cfg.n_embed, cfg.embed_dim)}")

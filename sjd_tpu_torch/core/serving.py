@@ -10,19 +10,29 @@ trajectories are kept bit-exactly. On CUDA every chunk replays the engine's
 captured decode step; a refill changes the state's contents in place, so
 the same graph replays on.
 
-``StreamingBatcher``/``PendingResult``, prompt embeddings and data-parallel
-slots (``row_sharding``) are not ported yet.
+``StreamingBatcher`` does the same online: ``submit`` from any thread, a
+drive thread admits requests at chunk boundaries and resolves each
+request's ``PendingResult``. Only the drive thread touches the device.
+
+Prompt embeddings (``embed_dim``) and data-parallel slots
+(``row_sharding``) are not ported yet: ``StreamingBatcher`` refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..utils.logging import MetricLogger
 from .engine import seeded_generator
+
+_log = logging.getLogger("sjd_tpu_torch.serving")
 
 
 @dataclasses.dataclass
@@ -153,3 +163,286 @@ class ContinuousBatcher:
         self.last_nfe = state.nfe
         done.sort(key=lambda c: c.prompt_index)
         return done
+
+
+def _not_ported(embed_dim: int, row_sharding: Any) -> None:
+    if embed_dim:
+        raise NotImplementedError("prompt embeddings (embed_dim > 0) are not ported: the "
+                                  "port's engine takes token prompts only")
+    if row_sharding is not None:
+        raise NotImplementedError("row_sharding (data-parallel slots) is not ported: the "
+                                  "port serves one device")
+
+
+class PendingResult:
+    """Handle returned by :meth:`StreamingBatcher.submit`; ``wait`` blocks
+    until the generation completes and returns its CompletedGeneration."""
+
+    def __init__(self, index: int):
+        self.index = index
+        self.submitted_at = time.perf_counter()
+        self._event = threading.Event()
+        self._result: Optional[CompletedGeneration] = None
+        self._error: Optional[BaseException] = None
+
+    def _resolve(self, result: CompletedGeneration) -> None:
+        self._result = result
+        self._event.set()
+
+    def _fail(self, err: BaseException) -> None:
+        self._error = err
+        self._event.set()
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> CompletedGeneration:
+        if not self._event.wait(timeout):
+            raise TimeoutError("generation not finished")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class StreamingBatcher:
+    """Online continuous batching: ``submit()`` prompts at any time from any
+    thread; a drive thread keeps ``batch`` engine slots busy, admitting
+    requests at chunk boundaries through ``SJDEngine.refill`` and resolving
+    finished requests' handles.
+
+    A request's slot gets a generator seeded from its own ``seed``
+    (:func:`seed_generators`) when it is admitted, into a fresh batch or by
+    a refill, so its tokens are a function of (prompt, seed) alone, whatever
+    the arrival order and the co-scheduled load. Idle slots carry a copy of
+    the first prompt, whose output is discarded; a refill re-arms them as
+    soon as a request arrives, finished or not.
+
+    ``prompt_width`` is the fixed token bucket: shorter prompts are
+    left-padded (mask False), longer ones refused; with ``neg_width`` (the
+    engine's ``cfg_mode="neg_prompt"``) each request brings a negative
+    prompt of at most that many ids. ``submit`` keeps its payload on the
+    host (lists): a CUDA
+    call from a client thread while the drive thread captures the decode
+    step would break the capture. The drive thread makes the engine's
+    device its current device (a per-thread setting).
+    """
+
+    def __init__(self, engine, params, *, batch: int = 4, chunk_steps: int = 128,
+                 prompt_width: int, neg_width: int = 0, embed_dim: int = 0,
+                 row_sharding: Any = None):
+        _not_ported(embed_dim, row_sharding)
+        self.engine = engine
+        self.params = params
+        self.B = batch
+        self.chunk_steps = chunk_steps
+        self.P = prompt_width
+        self.neg_width = neg_width
+        dev = engine.device
+        # the drive thread's current device (a per-thread setting)
+        self._cuda_index = (None if dev.type != "cuda" else
+                            dev.index if dev.index is not None else torch.cuda.current_device())
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._pending: List[tuple] = []  # (PendingResult, ids, neg, seed)
+        self._count = 0
+        self._completed = 0
+        self._in_flight = 0
+        self._tokens_out = 0
+        self._batches = 0  # fresh batches (generate)
+        self._refills = 0
+        self._chunks = 0  # generate and resume calls
+        self._metrics = MetricLogger()  # latency_s, gen_tokens per completion
+        self._closed = False
+        self._thread = threading.Thread(target=self._drive, name="StreamingBatcher",
+                                        daemon=True)
+        self._thread.start()
+
+    def stats(self) -> dict:
+        """A snapshot of the serving counters: requests submitted, completed,
+        in flight and pending, generated tokens, fresh batches, refills and
+        chunks (generate and resume calls), and each completion's latency
+        from submit (median, mean)."""
+        with self._lock:
+            lat = self._metrics.meters["latency_s"]
+            return {"submitted": self._count, "completed": self._completed,
+                    "in_flight": self._in_flight, "pending": len(self._pending),
+                    "tokens_generated": self._tokens_out, "batches": self._batches,
+                    "refills": self._refills,
+                    "chunks": self._chunks, "latency_s_median": lat.median,
+                    "latency_s_mean": lat.global_avg}
+
+    # -- client side -----------------------------------------------------
+
+    def submit(self, prompt_ids, neg_prompt_ids=None, seed: int = 0,
+               prompt_embeds=None) -> PendingResult:
+        if prompt_embeds is not None:
+            _not_ported(1, None)
+        ids = [int(t) for t in prompt_ids]
+        if not 0 < len(ids) <= self.P:
+            raise ValueError(f"prompt length {len(ids)} is outside the bucket (1..{self.P})")
+        neg = [int(t) for t in neg_prompt_ids] if neg_prompt_ids is not None else None
+        if self.neg_width and (neg is None or len(neg) > self.neg_width):
+            raise ValueError(f"a negative prompt of at most {self.neg_width} ids is required")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("batcher closed")
+            handle = PendingResult(self._count)
+            self._count += 1
+            self._pending.append((handle, ids, neg, int(seed)))
+            self._wake.notify()
+        return handle
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Serve what was submitted, then stop the drive thread."""
+        with self._lock:
+            self._closed = True
+            self._wake.notify()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError(f"the drive thread did not stop within {timeout} s")
+
+    # -- drive loop ------------------------------------------------------
+
+    @staticmethod
+    def _pad_row(ids: List[int], width: int):
+        pad = width - len(ids)
+        return [0] * pad + ids, [False] * pad + [True] * len(ids)
+
+    def _rows(self, reqs: Dict[int, tuple], fill: tuple) -> dict:
+        """[B]-row engine arguments (host numpy) and per-slot seeds; slots
+        outside ``reqs`` get ``fill``'s prompt."""
+        B = self.B
+        ids_rows, mask_rows, neg_rows, negm_rows, seeds = [], [], [], [], []
+        for b in range(B):
+            r = reqs.get(b, fill)
+            row, m = self._pad_row(r[1], self.P)
+            ids_rows.append(row)
+            mask_rows.append(m)
+            if self.neg_width:
+                row, m = self._pad_row(r[2], self.neg_width)
+                neg_rows.append(row)
+                negm_rows.append(m)
+            seeds.append(r[3] if b in reqs else 0)
+        kw = dict(prompt=np.asarray(ids_rows, np.int32),
+                  prompt_mask=np.asarray(mask_rows, bool))
+        if self.neg_width:
+            kw.update(neg_prompt=np.asarray(neg_rows, np.int32),
+                      neg_mask=np.asarray(negm_rows, bool))
+        return dict(kw=kw, seeds=seeds)
+
+    def _drive(self) -> None:
+        """The drive loop; an error outside a batch (none is expected) fails
+        every queued request and closes the batcher, so no wait hangs."""
+        try:
+            self._drive_loop()
+        except Exception as e:
+            _log.exception("StreamingBatcher: the drive thread failed")
+            with self._lock:
+                self._closed = True
+                queued, self._pending = self._pending, []
+            for r in queued:
+                r[0]._fail(e)
+
+    def _drive_loop(self) -> None:
+        eng = self.engine
+        dev = eng.device
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        B = self.B
+        occupants: List[Optional[PendingResult]] = [None] * B
+        fill: Optional[tuple] = None  # the prompt idle slots carry
+        state = None
+
+        def take(n):
+            out = []
+            while self._pending and len(out) < n:
+                out.append(self._pending.pop(0))
+            return out
+
+        def set_in_flight():
+            with self._lock:
+                self._in_flight = sum(o is not None for o in occupants)
+
+        while True:
+            with self._lock:
+                while not self._pending and not self._closed and state is None:
+                    self._wake.wait()
+                if self._closed and not self._pending and all(o is None for o in occupants):
+                    return
+                new = take(B if state is None else sum(o is None for o in occupants))
+            try:
+                if state is None:
+                    if not new:
+                        continue
+                    reqs = dict(enumerate(new))
+                    for b, r in reqs.items():
+                        occupants[b] = r[0]
+                    fill = new[0]
+                    rows = self._rows(reqs, fill)
+                    _, state = eng.generate(
+                        self.params, seed_generators(rows["seeds"], dev),
+                        max_steps=self.chunk_steps, return_state=True, **rows["kw"])
+                    with self._lock:
+                        self._batches += 1
+                        self._chunks += 1
+                    set_in_flight()
+                    continue
+
+                # chunk boundary: harvest the finished occupied slots
+                finished = state.finished.cpu().numpy()
+                lengths = None
+                for b in range(B):
+                    h = occupants[b]
+                    if h is None or not finished[b]:
+                        continue
+                    if lengths is None:
+                        lengths = state.length.cpu().numpy()
+                    n = int(lengths[b])
+                    done = CompletedGeneration(
+                        prompt_index=h.index,
+                        tokens=state.tokens[b, :n].cpu().numpy().copy(),
+                        gen_count=n - state.prompt_rows)
+                    occupants[b] = None
+                    with self._lock:
+                        self._completed += 1
+                        self._tokens_out += done.gen_count
+                        self._metrics.update(latency_s=time.perf_counter() - h.submitted_at,
+                                             gen_tokens=done.gen_count)
+                    h._resolve(done)
+
+                # slots the harvest freed admit requests at this boundary
+                free = sum(o is None for o in occupants) - len(new)
+                if free > 0:
+                    with self._lock:
+                        new += take(free)
+                if new:
+                    reqs = {}
+                    for r in new:
+                        b = occupants.index(None)
+                        occupants[b] = r[0]
+                        reqs[b] = r
+                    rows = self._rows(reqs, fill)
+                    refill_mask = np.zeros((B,), bool)
+                    refill_mask[list(reqs)] = True
+                    state = eng.refill(self.params, state, refill_mask=refill_mask,
+                                       rng=seed_generators(rows["seeds"], dev), **rows["kw"])
+                    with self._lock:
+                        self._refills += 1
+                set_in_flight()
+                if all(o is None for o in occupants):
+                    state = None  # park until the next request
+                    continue
+                _, state = eng.resume(self.params, state, max_steps=self.chunk_steps,
+                                      return_state=True)
+                with self._lock:
+                    self._chunks += 1
+            except Exception as e:  # the serving loop must outlive one failed batch
+                # only the occupants reached the failed batch: fail them;
+                # queued requests stay queued for a fresh batch
+                _log.exception("StreamingBatcher: a batch failed")
+                for b in range(B):
+                    if occupants[b] is not None:
+                        occupants[b]._fail(e)
+                        occupants[b] = None
+                set_in_flight()
+                state = None

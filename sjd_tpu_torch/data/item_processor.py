@@ -1,25 +1,58 @@
-"""FlexAR token layout for Lumina-mGPT (sjd_tpu/data/item_processor.py),
-the parts the text-to-image path needs: the size token, splitting a
-generation into text and image spans, and an image span back to its grid
-of codebook ids. Tokenizer-backed prompting is not ported yet.
+"""FlexAR token layout and conversation prompting for Lumina-mGPT
+(sjd_tpu/data/item_processor.py):
 
   image block = <image_start> <size h_grids> <size w_grids>
                 (row of w_lat ids + <new_line>) x h_lat <image_end>
   size token id = 8804 + pixels // 32; latent dim = n_grids * 2
+  conversation turns end with <reserved08706>; the text-to-image prompt is
+  "Generate an image of {W}x{H} according to the following prompt:\\n{caption}"
+
+The layout functions are tokenizer-free; :class:`FlexARItemProcessor` adds
+a tokenizer (any object with ``encode``) for text and the VQ encoder for
+image inputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..models.chameleon import IMAGE_END_ID, IMAGE_START_ID, NEW_LINE_ID, SIZE_TOKEN_BASE
-from .vocab_translation import VocabMapping, bpe_to_img
+from .image_processing import generate_crop_size_list
+from .vocab_translation import VocabMapping, bpe_to_img, img_to_bpe
+
+SEP_TOKEN = "<reserved08706>"
+IMAGE_PLACEHOLDER = "<|image|>"
 
 
 def size_token_id(pixels: int, patch_size: int = 32) -> int:
     return SIZE_TOKEN_BASE + pixels // patch_size
+
+
+def grid_dims(pixels_h: int, pixels_w: int) -> Tuple[int, int]:
+    """Latent grid (h, w) of a pixel size: VQ factor 16."""
+    return pixels_h // 16, pixels_w // 16
+
+
+def image_block_from_grid(grid_ids: np.ndarray, pixels_h: int, pixels_w: int,
+                          mapping: Optional[VocabMapping] = None) -> List[int]:
+    """[h_lat, w_lat] codebook ids -> the FlexAR image block, the ids
+    translated to the LM's image tokens through ``mapping`` (None keeps
+    them raw)."""
+    grid_ids = np.asarray(grid_ids)
+    h_lat, w_lat = grid_ids.shape
+    if (h_lat, w_lat) != grid_dims(pixels_h, pixels_w):
+        raise ValueError(f"grid {(h_lat, w_lat)} is not the latent grid of "
+                         f"{pixels_h}x{pixels_w} px")
+    if mapping is not None:
+        grid_ids = img_to_bpe(mapping, grid_ids)
+    with_eol = np.concatenate(
+        [grid_ids, np.full((h_lat, 1), NEW_LINE_ID, grid_ids.dtype)], axis=1).reshape(-1)
+    return [IMAGE_START_ID, size_token_id(pixels_h), size_token_id(pixels_w),
+            *[int(t) for t in with_eol], IMAGE_END_ID]
 
 
 def image_grid_from_block(tokens: Sequence[int],
@@ -67,3 +100,119 @@ def split_generation(tokens: Sequence[int]):
     if cur:
         spans.append(("text", cur))
     return spans
+
+
+def image_grid(images, rows: int, cols: int):
+    """Tile PIL images into one grid image."""
+    from PIL import Image
+
+    w, h = images[0].size
+    grid = Image.new("RGB", (cols * w, rows * h))
+    for i, img in enumerate(images):
+        grid.paste(img, ((i % cols) * w, (i // cols) * h))
+    return grid
+
+
+def t2i_question(caption: str, pixels_w: int = 768, pixels_h: int = 768) -> str:
+    return (f"Generate an image of {pixels_w}x{pixels_h} according to the "
+            f"following prompt:\n{caption}")
+
+
+def conversation_prompt(qas: List[List[Optional[str]]]) -> str:
+    """Turns joined with the separator token; a trailing None answer leaves
+    a generation prompt."""
+    out = []
+    for q, a in qas:
+        out.append(q + SEP_TOKEN)
+        if a is not None:
+            out.append(a + SEP_TOKEN)
+    return "".join(out)
+
+
+def _is_pil(image) -> bool:
+    return hasattr(image, "size") and hasattr(image, "convert") and not isinstance(
+        image, (np.ndarray, torch.Tensor))
+
+
+class FlexARItemProcessor:
+    """Tokenizer-backed prompt builder. ``tokenizer`` is any object with
+    ``encode`` over the Chameleon vocabulary. With ``vq_params`` (on any
+    device: the encoder runs there) and ``mapping`` it also turns images
+    into FlexAR blocks, spliced where ``<|image|>`` appears in a turn."""
+
+    def __init__(self, tokenizer, *, mapping: Optional[VocabMapping] = None,
+                 vq_params=None, vq_cfg=None, input_patches: int = 1024):
+        self.tokenizer = tokenizer
+        self.mapping = mapping
+        self.vq_params = vq_params
+        self.vq_cfg = vq_cfg
+        # crop sizes for image inputs; input_patches bounds their tokens
+        self.crop_size_list = generate_crop_size_list(num_patches=input_patches,
+                                                      patch_size=32)
+
+    def t2i_prompt_ids(self, caption: str, pixels: int = 768) -> List[int]:
+        text = conversation_prompt([[t2i_question(caption, pixels, pixels), None]])
+        return list(self.tokenizer.encode(text))
+
+    def process_image(self, image) -> List[int]:
+        """PIL image (fitted to a crop size first) or [H, W, 3] array in
+        [-1, 1] (H, W multiples of twice the VQ factor) -> FlexAR block: VQ
+        encode at the image's size, codebook -> BPE ids, rows with
+        <new_line>, the size header."""
+        from ..models.vq import encode as vq_encode
+
+        if self.vq_params is None:
+            raise ValueError("process_image needs vq_params")
+        f = self.vq_cfg.downsample_factor
+        if _is_pil(image):
+            image = self._fit_to_crop(image)
+            w_px, h_px = image.size
+            arr = np.asarray(image.convert("RGB"), np.float32) / 127.5 - 1.0
+        else:
+            arr = np.asarray(image, np.float32)
+            h_px, w_px = arr.shape[:2]
+            if h_px % (2 * f) or w_px % (2 * f):
+                raise ValueError(f"array inputs must be multiples of {2 * f}px (pass a "
+                                 "PIL image for crop-list fitting)")
+        dev = self.vq_params["codebook"].device
+        with torch.no_grad():
+            ids = vq_encode(self.vq_params, self.vq_cfg, torch.from_numpy(arr[None]).to(dev))
+        grid = ids[0].cpu().numpy().astype(np.int32).reshape(h_px // f, w_px // f)
+        return image_block_from_grid(grid, h_px, w_px, mapping=self.mapping)
+
+    def _fit_to_crop(self, image):
+        """Deterministic var_center_crop: the crop whose aspect ratio is
+        nearest, resized to cover, centre-cropped."""
+        w_px, h_px = image.size
+        cw, ch = min(self.crop_size_list,
+                     key=lambda s: abs(math.log((w_px / h_px) / (s[0] / s[1]))))
+        scale = max(cw / w_px, ch / h_px)
+        rw, rh = max(cw, round(w_px * scale)), max(ch, round(h_px * scale))
+        image = image.resize((rw, rh))
+        left, top = (rw - cw) // 2, (rh - ch) // 2
+        return image.crop((left, top, left + cw, top + ch))
+
+    def multimodal_prompt_ids(self, qas: List[List[Optional[str]]],
+                              images: Sequence = ()) -> List[int]:
+        """Conversation turns with each ``<|image|>`` replaced by the next
+        image's block, in order."""
+        img_iter = iter(images)
+        out: List[int] = []
+
+        def emit(text: str):
+            for k, part in enumerate(text.split(IMAGE_PLACEHOLDER)):
+                if k:
+                    out.extend(self.process_image(next(img_iter)))
+                if part:
+                    out.extend(self.tokenizer.encode(part))
+
+        for q, a in qas:
+            emit(q + SEP_TOKEN)
+            if a is not None:
+                emit(a + SEP_TOKEN)
+        return out
+
+    def decode_images(self, tokens: Sequence[int]) -> List[np.ndarray]:
+        """Every image span of ``tokens`` as its grid of codebook ids."""
+        return [image_grid_from_block(span, mapping=self.mapping)
+                for kind, span in split_generation(tokens) if kind == "image"]

@@ -1,7 +1,8 @@
 """Chameleon / Lumina-mGPT model family (sjd_tpu/models/chameleon.py).
 
 7B = 32 layers, 32 heads, d=4096, ff=11008, vocab 65536, per-head qk
-LayerNorm, RoPE theta 1e4. FlexAR token layout: <image_start>(8197)
+LayerNorm, RoPE theta 1e4; 34B = 48 layers, 64 query heads over 8 KV heads,
+d=8192, ff=22016, swin-norm. FlexAR token layout: <image_start>(8197)
 <size h>(8804 + h/32) <size w>(8804 + w/32), then rows of image tokens
 [4..8195] each followed by <new_line>(8803), then <image_end>(8196).
 Engine parameters: window 16, CFG by prompt masking, image_top_k 2000,
@@ -51,7 +52,16 @@ def chameleon_config(size: str = "7B", dtype: torch.dtype = torch.bfloat16) -> D
             rope_theta=10000.0, qk_norm=True, swin_norm=False, norm_eps=1e-5,
             dtype=dtype, max_position_embeddings=4096 + 2048,
         )
-    raise ValueError(f"chameleon size {size!r} is not ported")
+    if size == "34B":
+        # Chameleon-30B/34B: 48 layers, 64 query heads over 8 KV heads (GQA),
+        # d 8192, ff 22016, norms after the attention and MLP (swin-norm)
+        return DecoderConfig(
+            vocab_size=65536, hidden_size=8192, intermediate_size=22016,
+            num_layers=48, num_heads=64, num_kv_heads=8, head_dim=128,
+            rope_theta=10000.0, qk_norm=True, swin_norm=True, norm_eps=1e-5,
+            dtype=dtype, max_position_embeddings=4096 + 2048,
+        )
+    raise ValueError(f"unknown chameleon size {size!r}")
 
 
 def jacobi_interval_r(target_size: int) -> int:

@@ -182,7 +182,8 @@ def init_params(rng: Union[int, torch.Generator], cfg: DecoderConfig, *,
     ``leaf_fn(name, w)`` maps each random weight as soon as it is drawn
     (``name``: ``"wq"`` ... ``"w_down"``, ``"embed"``, ``"lm_head"``): the
     loader quantizes there, so that one bf16 stacked weight at a time is
-    live. The draws are the same with or without it."""
+    live. The draws are the same with or without it. Stacked weights are
+    drawn layer by layer, so the f32 draw is one layer's size."""
     dev = resolve_device(device)
     if isinstance(rng, torch.Generator):
         gen = rng
@@ -192,8 +193,12 @@ def init_params(rng: Union[int, torch.Generator], cfg: DecoderConfig, *,
     dt = cfg.dtype
 
     def dense(name, fan_in, shape):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        w = w.mul_(1.0 / math.sqrt(fan_in)).to(dt)
+        w = torch.empty(shape, dtype=dt, device=dev)
+        # a stacked weight is drawn one layer at a time, so that its f32
+        # draw is one layer's size (the 34B's w_gate would be 34.6 GB)
+        for part in (w if len(shape) == 3 else (w,)):
+            part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                                   device=dev).mul_(1.0 / math.sqrt(fan_in)))
         return w if leaf_fn is None else leaf_fn(name, w)
 
     n, d, i = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size

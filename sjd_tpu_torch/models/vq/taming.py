@@ -1,12 +1,13 @@
-"""Taming-style VQGAN decoder (the decode half of
-sjd_tpu/models/vq/taming.py): token ids -> pixels.
+"""Taming-style VQGAN (sjd_tpu/models/vq/taming.py): the decoder (token
+ids -> pixels) and the encoder (pixels -> token ids, for image-conditioned
+prompts).
 
 Parameters keep the JAX package's tree and names; convolution weights are
-OIHW here (HWIO there; ``convert.vq_params_from_jax`` transposes them).
-Activations run NCHW inside; the public :func:`decode` keeps the JAX
-layout and returns [B, H, W, 3] in [-1, 1]. The convolutions are
-``F.conv2d``, as the JAX package leaves them to XLA. The encoder is not
-ported yet.
+OIHW here (HWIO there; ``convert.vq_params_from_jax`` transposes them, and
+torch checkpoints are OIHW already). Activations run NCHW inside; the
+public :func:`encode` and :func:`decode` keep the JAX layout ([B, H, W, 3]
+pixels in [-1, 1]). The convolutions are ``F.conv2d``, as the JAX package
+leaves them to XLA: neither half has a kernel of its own.
 """
 
 from __future__ import annotations
@@ -107,6 +108,11 @@ def attn_block(p: Dict, x: Tensor) -> Tensor:
     return x + conv2d(out, p["proj_w"], p["proj_b"])
 
 
+def downsample(p: Dict, x: Tensor) -> Tensor:
+    """Asymmetric (0, 1, 0, 1) pad, then a stride-2 unpadded convolution."""
+    return F.conv2d(F.pad(x, (0, 1, 0, 1)), p["conv_w"], p["conv_b"], stride=2)
+
+
 def upsample(p: Dict, x: Tensor) -> Tensor:
     x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
     return conv2d(x, p["conv_w"], p["conv_b"])
@@ -121,6 +127,47 @@ def codebook_lookup(cfg: VQConfig, codebook: Tensor, ids: Tensor,
         cb = cb / cb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     h, w = grid_hw
     return cb[ids.long()].reshape(ids.shape[0], h, w, cfg.embed_dim)
+
+
+def codebook_encode(cfg: VQConfig, codebook: Tensor, z: Tensor) -> Tensor:
+    """Nearest codebook entry of each latent of z [B, h, w, embed_dim], in
+    f32: ids [B, h*w] (int32), the first index on a tie. Distances are
+    |z|^2 - 2 z.c + |c|^2, as the JAX package computes them."""
+    cb = codebook.float()
+    zf = z.float()
+    if cfg.l2_norm_codebook:
+        cb = cb / cb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        zf = zf / zf.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    flat = zf.reshape(-1, cfg.embed_dim)
+    d = ((flat ** 2).sum(1, keepdim=True) - 2 * flat @ cb.t()
+         + (cb ** 2).sum(1)[None, :])
+    return torch.argmin(d, dim=1).to(torch.int32).reshape(z.shape[0], -1)
+
+
+def encode_latents(params: Dict, cfg: VQConfig, pixels: Tensor) -> Tensor:
+    """pixels [B, H, W, 3] (in [-1, 1]) -> pre-quantization latents
+    [B, H/f, W/f, embed_dim]."""
+    e = params["encoder"]
+    h = conv2d(pixels.to(cfg.dtype).permute(0, 3, 1, 2), e["conv_in_w"], e["conv_in_b"])
+    for level in e["down"]:
+        for j in range(cfg.num_res_blocks):
+            h = resnet_block(level["res"][j], h)
+            if level.get("attn"):
+                h = attn_block(level["attn"][j], h)
+        if "downsample" in level:
+            h = downsample(level["downsample"], h)
+    h = resnet_block(e["mid_block1"], h)
+    h = attn_block(e["mid_attn"], h)
+    h = resnet_block(e["mid_block2"], h)
+    h = group_norm(h, e["norm_out_scale"], e["norm_out_bias"])
+    h = conv2d(swish(h), e["conv_out_w"], e["conv_out_b"])
+    z = conv2d(h, params["quant_conv_w"], params["quant_conv_b"])
+    return z.permute(0, 2, 3, 1)
+
+
+def encode(params: Dict, cfg: VQConfig, pixels: Tensor) -> Tensor:
+    """pixels [B, H, W, 3] (in [-1, 1]) -> codebook ids [B, (H/f)*(W/f)]."""
+    return codebook_encode(cfg, params["codebook"], encode_latents(params, cfg, pixels))
 
 
 def decode(params: Dict, cfg: VQConfig, ids: Tensor,
@@ -147,15 +194,15 @@ def decode(params: Dict, cfg: VQConfig, ids: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# init (random weights, decoder side)
+# init (random weights)
 # ---------------------------------------------------------------------------
 
 
 def init_vq_params(rng: Union[int, torch.Generator], cfg: VQConfig, *,
                    device=None) -> Dict:
-    """Random decoder-side parameters with the JAX package's shapes and
-    scales (conv weights U(-1/sqrt(fan_in), +)), OIHW, from a
-    ``torch.Generator``."""
+    """Random parameters with the JAX package's tree, shapes and scales
+    (conv weights U(-1/sqrt(fan_in), +)), OIHW, from a ``torch.Generator``:
+    the decoder half first, then the encoder half."""
     dev = resolve_device(device)
     if isinstance(rng, torch.Generator):
         gen = rng
@@ -214,10 +261,32 @@ def init_vq_params(rng: Union[int, torch.Generator], cfg: VQConfig, *,
         "norm_out_scale": ones(block_in), "norm_out_bias": zeros(block_in),
         "conv_out_w": conv(3, block_in, cfg.out_ch), "conv_out_b": zeros(cfg.out_ch),
     }
-    return {
+    params = {
         "decoder": decoder,
         "codebook": uniform((cfg.n_embed, cfg.embed_dim), 1.0 / cfg.n_embed,
                             torch.float32),
         "post_quant_conv_w": conv(1, cfg.embed_dim, cfg.z_channels),
         "post_quant_conv_b": zeros(cfg.z_channels),
     }
+    # the encoder half, drawn after the decoder half
+    down = []
+    in_mult = (1,) + tuple(cfg.ch_mult)
+    for i in range(cfg.num_resolutions):
+        cin, cout = cfg.ch * in_mult[i], cfg.ch * cfg.ch_mult[i]
+        level = {"res": [res(cin if j == 0 else cout, cout)
+                         for j in range(cfg.num_res_blocks)]}
+        if cfg.has_attn(i):
+            level["attn"] = [attn(cout) for _ in range(cfg.num_res_blocks)]
+        if i != cfg.num_resolutions - 1:
+            level["downsample"] = {"conv_w": conv(3, cout, cout), "conv_b": zeros(cout)}
+        down.append(level)
+    params["encoder"] = {
+        "conv_in_w": conv(3, cfg.in_channels, cfg.ch), "conv_in_b": zeros(cfg.ch),
+        "down": down,
+        "mid_block1": res(top, top), "mid_attn": attn(top), "mid_block2": res(top, top),
+        "norm_out_scale": ones(top), "norm_out_bias": zeros(top),
+        "conv_out_w": conv(3, top, cfg.z_channels), "conv_out_b": zeros(cfg.z_channels),
+    }
+    params["quant_conv_w"] = conv(1, cfg.z_channels, cfg.embed_dim)
+    params["quant_conv_b"] = zeros(cfg.embed_dim)
+    return params

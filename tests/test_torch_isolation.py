@@ -1,5 +1,7 @@
-"""sjd_tpu_torch imports neither JAX nor any module of sjd_tpu: the machine
-with the GPU has no JAX, so either import would break the port there."""
+"""sjd_tpu_torch imports neither JAX nor any module of sjd_tpu, and none of
+safetensors, transformers, tokenizers, sentencepiece and PIL when its
+modules are imported: the machine with the GPU has none of them, so such an
+import would break the port there."""
 
 import json
 import pkgutil
@@ -11,8 +13,10 @@ import sjd_tpu_torch
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
-sys.modules["jax"] = None          # any `import jax` now raises ImportError
-sys.modules["jaxlib"] = None
+# any import of these now raises ImportError
+for blocked in ("jax", "jaxlib", "safetensors", "transformers", "tokenizers",
+                "sentencepiece", "PIL"):
+    sys.modules[blocked] = None
 import sjd_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")]
 for name in names:
@@ -29,5 +33,5 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     expected = len(list(pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")))
-    assert seen["n_modules"] == expected >= 15
+    assert seen["n_modules"] == expected >= 25
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

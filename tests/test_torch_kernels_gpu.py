@@ -78,6 +78,8 @@ EPILOGUE_CASES = {
     # past L - T, and negative (counts from the end): both clamp to L - T
     "clamped": ((2, 16, 32, 32, 128, 2, 256, 1), (250, -3)),
     "prefill15": ((2, 15, 32, 32, 128, 2, 256, 0), (0, 0)),  # the 15-token prompt
+    # Chameleon-34B: 64 query heads over 8 KV heads, 48 layers, the last one
+    "chameleon34b": ((2, 16, 64, 8, 128, 48, 2560, 47), (2400, 150)),
 }
 
 
@@ -140,6 +142,8 @@ ATTENTION_CASES = {
     "mostly_dead": ((2, 16, 32, 32, 128, 1, 2560), (40, 5), (0, 3)),  # most splits dead
     "masked_split": ((2, 16, 32, 32, 128, 1, 2560), (1200, 1200), (0, 600)),  # splits masked
     "w32": ((2, 32, 32, 32, 128, 1, 1024), (600, 77), (0, 20)),  # two groups of 16 rows
+    # Chameleon-34B: a query group of 8 (128 rows per KV head), 48 layers
+    "chameleon34b": ((2, 16, 64, 8, 128, 48, 2560), (2400, 150), (0, 14)),
 }
 
 
@@ -238,6 +242,40 @@ def test_forward_kernel_path_matches_plain_path(cuda):
         outs.append(pt.forward(params, c, ids[:, P:], pos_w, kv, zero + P, valid,
                                rope).logits)
     err = (outs[0] - outs[1]).abs().max().item()
+    assert err <= 0.05 * outs[1].abs().max().item(), err
+
+
+def test_chameleon34b_heads_forward_kernel_path_matches_plain_path(cuda):
+    """The 34B's attention shape in a 2-layer decoder: 64 query heads over 8
+    KV heads of 128, swin-norm, W4A16 weights (K1), int8 cache; a prefill
+    and a window through the kernels against attn_impl="plain"."""
+    import dataclasses
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.chameleon import chameleon_config
+
+    cfg = dataclasses.replace(chameleon_config("34B"), vocab_size=1024, hidden_size=1024,
+                              intermediate_size=2048, num_layers=2, kv_quant=True,
+                              max_position_embeddings=256)
+    params = pt.quantize_weights(pt.init_params(0, cfg, device=cuda), bits=4, head_bits=8,
+                                 config=cfg)
+    rope = pt.make_rope_table(cfg, 256, device=cuda)
+    S, P, W, L = 2, 12, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ids = torch.randint(0, 1024, (S, P + W), generator=gen, device=cuda)
+    valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
+    valid[1, :P - 1] = False
+    pos = torch.clamp_min(torch.cumsum(valid[:, :P].int(), 1) - 1, 0)
+    pos_w = pos[:, -1:] + 1 + torch.arange(W, device=cuda)
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
+        kv = pt.init_kv_cache(c, S, L, device=cuda)
+        zero = torch.zeros((S,), dtype=torch.int32, device=cuda)
+        pt.forward(params, c, ids[:, :P], pos, kv, zero, valid, rope)
+        outs.append(pt.forward(params, c, ids[:, P:], pos_w, kv, zero + P, valid,
+                               rope).logits)
+    err = (outs[0] - outs[1]).abs().max().item()
+    assert torch.isfinite(outs[0]).all()
     assert err <= 0.05 * outs[1].abs().max().item(), err
 
 
