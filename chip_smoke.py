@@ -80,7 +80,29 @@ and checkpoints from disk, image prompts, streaming and the 34B:
                int8 cache, fills 150 and 2400), then phase 6's check of 32
                replayed steps at 768px.
 
-Each of the paths 6-8, 10-11 and 14-17 starts from kernel launch counts of 0 and
+and Emu3-Gen 8B at 720px and Anole-7B:
+
+  3c. epilogue_emu3, attention_emu3 - the epilogue with no qk-norm and
+               the attention at GQA group 4 over the 720px image's
+               8704-row int8 buffer (fills 150, 4000, 8190), and K1 at
+               Emu3's weight shapes (in quant_kernels), each against its
+               plain version;
+  18. emu3_load - load_emu3(quantize=4): the 8B at full width and depth on
+               random weights drawn a layer at a time (int4 projections,
+               int8 head), the full random Emu3VisionVQ, a duck tokenizer;
+  19. emu3_forward, emu3_graph - the kernel forward within 5% of the plain
+               one (W4A16 at full depth; bf16 cut to 2 layers), and phase
+               6's check of 32 replayed steps with the negative prompt;
+  20. emu3_generate - one 720px image (90 x 90 grid, CFG 3.0 against the
+               negative prompt, window 16, repeat_horizon drafts): the
+               image, the grammar's offsets, the launches per forward;
+  21. emu3_understand - understand_fn once: the 8318-row prompt bucket
+               prefilled on the plain path in blocks of query rows;
+  22. anole  - load_anole(quantize=4): one image-only 512px image (1024
+               tokens and <eoi>) with its launches per forward, a short
+               interleaved run, encode_image_fn against a direct encode.
+
+Each of the paths 6-8, 10-11, 14-17 and 19-22 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -209,11 +231,12 @@ def phase_build():
 
 
 def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
-                   Hkv: int = 32, NL: int = 32, layer: int = 17):
+                   Hkv: int = 32, NL: int = 32, layer: int = 17, qk_norm: bool = True):
     """``fused_epilogue_into_cache`` against its plain version over a whole
     ``NL``-layer int8 cache filled with sentinels, at ``S`` rows and per-row
-    fills ``ends``: the window's rows within tolerance, every other row
-    unchanged. Times both; returns the case's row."""
+    fills ``ends``, with or without the qk LayerNorm: the window's rows
+    within tolerance, every other row unchanged. Times both; returns the
+    case's row."""
     import torch
 
     from sjd_tpu_torch.ops.fused_epilogue import (
@@ -236,7 +259,9 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
     caches = {who: [sentinel[0].clone(), sentinel[0].clone(), sentinel[1].clone(),
                     sentinel[1].clone()] for who in ("kernel", "plain")}
     args = (qp, kp, vp, *norms, ang.cos().contiguous(), ang.sin().contiguous())
-    kw = dict(layer=layer, num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=True)
+    if not qk_norm:  # no affines: the kernel reads none
+        args = (qp, kp, vp, None, None, None, None, *args[7:])
+    kw = dict(layer=layer, num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=qk_norm)
     call = lambda: fused_epilogue_into_cache(*args, *caches["kernel"], cache_end, **kw)  # noqa: E731
     plain = lambda: fused_epilogue_into_cache_plain(  # noqa: E731
         *args, *caches["plain"], cache_end, **kw)
@@ -270,15 +295,15 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
     plain_ms = time_ms(plain)
     # each input read once, each output written once: the window's K/V
     # codes and scales go straight into the cache, nothing is read back
-    n_in = (2 * S * T * (H + 2 * Hkv) * D + 2 * 2 * (H + Hkv) * D + 2 * 4 * S * T * D
-            + 4 * S)
+    n_in = (2 * S * T * (H + 2 * Hkv) * D + qk_norm * 2 * 2 * (H + Hkv) * D
+            + 2 * 4 * S * T * D + 4 * S)
     n_out = 2 * S * T * H * D + 2 * S * T * Hkv * D + 2 * 2 * S * T * Hkv
     # per element: ~8 norm ops (q, k), 3 rope ops (q, k), ~4 quantize ops (k, v)
-    n_ops = S * T * D * (11 * (H + Hkv) + 4 * 2 * Hkv)
+    n_ops = S * T * D * ((8 * qk_norm + 3) * (H + Hkv) + 4 * 2 * Hkv)
     b_ms, b_by = bound_ms(n_in + n_out, n_ops, F32_FLOPS)
     row = dict(name="fused_epilogue", case=case,
                shape=dict(S=S, T=T, H=H, Hkv=Hkv, D=D, NL=NL, L=L, layer=layer,
-                          cache_end=list(ends)),
+                          cache_end=list(ends)), qk_norm=qk_norm,
                max_abs_err=errs, tolerance=dict(q=tol_q, codes=1, scales=tol_s),
                other_rows_unchanged=untouched, ok=ok, ms=ms, eager_ms=call_ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
@@ -423,6 +448,10 @@ QUANT_SHAPES = {"wq": (4096, 4096), "w_gate": (11008, 4096), "w_down": (4096, 11
 # rows: a decode window of the generate path (S = 2, W = 16) and of the
 # serve path (S = 4), and the generate path's prefill (2 x 15 prompt rows)
 QUANT_ROWS = {"generate": 32, "serve": 64, "prefill": 30}
+# Emu3-Gen 8B's weights (N, K) for K1: wk/wv, w_gate/w_up, w_down (int4) and
+# the int8 head of 184622 rows (not a multiple of K1's 128-row block)
+EMU3_QUANT_SHAPES = {"emu3_wk": (1024, 4096), "emu3_w_gate": (14336, 4096),
+                     "emu3_w_down": (4096, 14336), "emu3_lm_head": (184622, 4096)}
 L2_BYTES = 50 * 2 ** 20  # the H100's L2
 
 
@@ -448,7 +477,7 @@ def _quant_case(dev, weight: str, bits: int, a8: bool, case: str, seed: int):
     from sjd_tpu_torch.models.transformer import _quantize_act, quantize_int4, quantize_int8
     from sjd_tpu_torch.ops import quant_linear as ql
 
-    (N, K), M = QUANT_SHAPES[weight], QUANT_ROWS[case]
+    (N, K), M = {**QUANT_SHAPES, **EMU3_QUANT_SHAPES}[weight], QUANT_ROWS[case]
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
     w = (torch.randn((N, K), generator=g, device=dev) / math.sqrt(K)).to(torch.bfloat16)
@@ -487,7 +516,7 @@ def _quant_case(dev, weight: str, bits: int, a8: bool, case: str, seed: int):
                                                trials=7)
         except RuntimeError as e:  # a yardstick that does not run here is reported
             library["torch._int_mm"] = f"does not run: {str(e).splitlines()[0][:120]}"
-    if not a8 and bits == 8:
+    if not a8 and bits == 8 and not weight.startswith("emu3"):  # 52 ms at Emu3's head
         try:
             library["aten._weight_int8pack_mm"] = time_ms(
                 lambda: torch.ops.aten._weight_int8pack_mm(x, next(qs), s), reps=12, trials=7)
@@ -516,9 +545,10 @@ def _quant_case(dev, weight: str, bits: int, a8: bool, case: str, seed: int):
 def phase_quant_kernels(dev):
     """K1 at bits 4 on the projections and bits 8 on the projections and the
     head; K2 the same; each at the generate and serve windows' rows and the
-    generate prefill's. Returns the kernels' JSON rows, whose numbers are
-    the main case's: the 4096 x 4096 projection, int4, at the generate
-    window."""
+    generate prefill's; then K1 at Emu3-Gen 8B's four weight shapes at the
+    generate and serve rows. Returns the kernels' JSON rows, whose numbers
+    are the main case's: the 4096 x 4096 projection, int4, at the generate
+    window (Emu3's row: its 14336 x 4096 int4 w_gate)."""
     rows = []
     seed = 10
     for a8 in (False, True):
@@ -529,9 +559,16 @@ def phase_quant_kernels(dev):
                 for case in QUANT_ROWS:
                     seed += 1
                     rows.append(_quant_case(dev, weight, bits, a8, case, seed))
+    # K1 at Emu3's shapes, on the generate and serve windows' rows
+    for weight in EMU3_QUANT_SHAPES:
+        for case in ("generate", "serve"):
+            seed += 1
+            rows.append(_quant_case(dev, weight, 8 if weight == "emu3_lm_head" else 4, False,
+                                    case, seed))
+    emu3 = next(r for r in rows if r["weight"] == "emu3_w_gate" and r["case"] == "generate")
     out = []
     for name, line in (("quant_linear_a16", 478), ("quant_linear_a8", 484)):
-        mine = [r for r in rows if r["name"] == name]
+        mine = [r for r in rows if r["name"] == name and not r["weight"].startswith("emu3")]
         main = next(r for r in mine if r["weight"] == "wq" and r["bits"] == 4
                     and r["case"] == "generate")
         out.append(dict(name=name, route="cuda", source="sjd_tpu_torch/csrc/quant_linear.cu",
@@ -540,6 +577,14 @@ def phase_quant_kernels(dev):
                         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                         bound_by=main["bound_by"],
                         library_ms=main["library_ms"]["F.linear_bf16"]))
+    mine = [r for r in rows if r["weight"].startswith("emu3")]
+    out.append(dict(name="quant_linear_a16", case="emu3", route="cuda",
+                    source="sjd_tpu_torch/csrc/quant_linear.cu",
+                    replaces="sjd_tpu/models/transformer.py:478",
+                    max_abs_err=max(r["max_abs_err"] for r in mine), ms=emu3["ms"],
+                    plain_ms=emu3["plain_ms"], bound_ms=emu3["bound_ms"],
+                    bound_by=emu3["bound_by"],
+                    library_ms=emu3["library_ms"]["F.linear_bf16"]))
     return out
 
 
@@ -777,7 +822,7 @@ def _profiled_launches(run) -> tuple[dict, int]:
 
 
 def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int = 32,
-                profiled_steps: int = 2):
+                profiled_steps: int = 2, make_engine=None, neg_ids=None):
     """The captured decode step against the eager one on the 7B: the same
     seed and calls, ``steps`` timed decode steps each after one untimed
     step (on the graph engine: replays of a graph captured beforehand).
@@ -785,42 +830,57 @@ def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int =
     must be :func:`per_forward`'s per forward on both. Then
     ``profiled_steps`` more replays under torch.profiler: each must run each
     kernel as often on the device, which is what GraphStats.executed
-    assumes of a replay."""
+    assumes of a replay.
+
+    ``make_engine(cuda_graph)`` builds the engine (the 7B's lumina_engine by
+    default) and ``neg_ids`` is the negative prompt of a ``neg_prompt`` CFG
+    engine. A prefill over KERNEL_MAX_T rows takes the plain path: no TPU
+    kernel launches there."""
     import torch
 
     from sjd_tpu_torch.models.chameleon import lumina_engine
+    from sjd_tpu_torch.models.transformer import KERNEL_MAX_T
     from sjd_tpu_torch.ops import launch_counts
 
+    if make_engine is None:
+        def make_engine(graph):
+            return lumina_engine(target_size=TARGET_SIZE, cuda_graph=graph, model_cfg=cfg,
+                                 device=dev)
     ids = torch.tensor([prompt_ids], dtype=torch.int32, device=dev)
+    gkw = {} if neg_ids is None else {
+        "neg_prompt": torch.tensor([neg_ids], dtype=torch.int32, device=dev)}
+    long_prefill = max(len(prompt_ids), len(neg_ids or ())) > KERNEL_MAX_T
     table = per_forward(params, cfg)
     runs, launched = {}, {}
     for graph in (False, True):
-        eng = lumina_engine(target_size=TARGET_SIZE, cuda_graph=graph, model_cfg=cfg,
-                            device=dev)
+        eng = make_engine(graph)
         _zero_launch_counts()
         # a throwaway run: on the graph engine the warm-up step and the
         # capture. Both engines make it, so that their caches hold the same
         # rows outside the live prefix too (the uncond half's masked prompt
         # rows attend to the whole buffer, so their K/V depend on it)
-        forwards = eng.generate(params, 0, ids, max_steps=3).nfe
-        _, st = eng.generate(params, 0, ids, max_steps=2, return_state=True)
+        forwards = eng.generate(params, 0, ids, max_steps=3, **gkw).nfe
+        _, st = eng.generate(params, 0, ids, max_steps=2, return_state=True, **gkw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, st = eng.resume(params, st, max_steps=steps, return_state=True)
         torch.cuda.synchronize()
         runs[graph] = (eng, st, 1e3 * (time.perf_counter() - t0) / steps)
         forwards += st.nfe
-        # every forward here has T <= 32 (a 15-token prompt, then windows of
-        # 16): each forward launches each kernel as the table says
-        launched[graph] = dict(executed=eng.stats.executed(launch_counts()),
-                               expected={k: n * forwards for k, n in table.items()})
+        # every decode forward has T <= 32 (windows of 16) and launches each
+        # kernel as the table says; the two prefills too when their prompt
+        # has no more than KERNEL_MAX_T rows (only the quantized products
+        # otherwise)
+        launched[graph] = dict(executed=eng.stats.executed(launch_counts()), expected={
+            k: n * (forwards - (2 if long_prefill and not k.startswith("quant") else 0))
+            for k, n in table.items()})
     (e_eng, e_st, e_ms), (g_eng, g_st, g_ms) = runs[False], runs[True]
     diff = _state_diff(e_st, g_st)
     first = None
     if diff is not None:
         # step both again from the prefill, one decode step per call, to
         # name the first step and tensor that differ
-        sts = [eng.generate(params, 0, ids, max_steps=1, return_state=True)[1]
+        sts = [eng.generate(params, 0, ids, max_steps=1, return_state=True, **gkw)[1]
                for eng in (e_eng, g_eng)]
         for i in range(1, steps + 2):
             for eng, st in zip((e_eng, g_eng), sts):
@@ -1503,6 +1563,318 @@ def phase_chameleon_34b(dev):
     return rows
 
 
+# -- Emu3-Gen 8B at 720px and Anole-7B ----------------------------------------
+
+EMU3_GRID = 90  # 720px at the VQ's factor 8
+# rows of the 720px image's KV buffer: the generated 8318 and two windows
+# past the 67-row negative prompt, rounded up to 512
+EMU3_L = 8704
+
+
+class Emu3Tok:
+    """A tokenizer for the Emu3 phases: ``encode`` gives one text id (in
+    [1000, 101000), below the special ids) per 4 characters from a hash of
+    the whole text, so the default negative prompt (245 characters) is
+    longer than a caption with its positive suffix."""
+
+    def encode(self, text):
+        import zlib
+
+        return [1000 + zlib.crc32(f"{i}:{text}".encode()) % 100000
+                for i in range(len(text) // 4 + 1)]
+
+
+# Emu3-Gen 8B's attention: 32 query heads over 8 KV heads of 128 (group 4),
+# 32 layers, no qk-norm
+EMU3_HEADS = dict(H=32, Hkv=8, NL=32, layer=31)
+
+
+def phase_epilogue_emu3(dev):
+    """The epilogue at Emu3-Gen 8B's shapes with no qk-norm, over the 720px
+    image's EMU3_L-row int8 buffer, into the last layer. Returns the
+    kernel's row."""
+    ep = _epilogue_case(dev, "emu3", 2, EMU3_L, (8190, 40), 31, qk_norm=False, **EMU3_HEADS)
+    return dict(name="fused_epilogue", case="emu3", route="cuda",
+                source="sjd_tpu_torch/csrc/fused_epilogue.cu",
+                replaces="sjd_tpu/ops/fused_epilogue.py:35",
+                max_abs_err=max(ep["max_abs_err"].values()), ms=ep["ms"],
+                plain_ms=ep["plain_ms"], bound_ms=ep["bound_ms"], bound_by=ep["bound_by"],
+                library_ms=None)
+
+
+def phase_attention_emu3(dev):
+    """The attention at GQA group 4 over the 720px image's EMU3_L-row int8
+    buffer at fills 150, 4000 and 8190, the negative prompt's half
+    left-padded by 4 rows. Returns the kernel's row (fill 8190's numbers)."""
+    import torch
+
+    valid = torch.ones((2, EMU3_L), dtype=torch.bool, device=dev)
+    valid[1, :4] = False
+    att = _attention_cases(dev, "emu3", 2, EMU3_L, valid, [(f, f) for f in (150, 4000, 8190)],
+                           ("int8",), 32, **EMU3_HEADS)
+    main = next(r for r in att if r["fill"][0] == 8190)
+    return dict(name="decode_attention", case="emu3", route="cuda",
+                source="sjd_tpu_torch/csrc/decode_attention.cu",
+                replaces="sjd_tpu/ops/decode_attention.py:38",
+                max_abs_err=max(r["max_abs_err"] for r in att), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"])
+
+
+def phase_emu3_load(dev):
+    """Emu3-Gen 8B through load_emu3(quantize=4) at full width and depth:
+    random weights drawn a layer at a time and quantized as drawn (packed
+    int4 projections, int8 head, no equilibration), the random Emu3VisionVQ
+    at its full widths, the duck tokenizer, init="repeat_horizon"."""
+    import torch
+
+    from sjd_tpu_torch.loader import load_emu3
+    from sjd_tpu_torch.models.transformer import weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = load_emu3(quantize=4, tokenizer=Emu3Tok(), init="repeat_horizon", device=dev)
+    torch.cuda.synchronize()
+    cfg = model.engine.model_cfg
+    wq, head = model.params["layers"]["wq"], model.params["lm_head"]
+    vq_bytes = weight_bytes(model.extras["vq_params"])
+    emit("emu3_load", seconds=time.time() - t0, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         ff=cfg.intermediate_size, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         vocab=cfg.vocab_size, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+         kv_quant=cfg.kv_quant, weight_bytes=weight_bytes(model.params), vq_bytes=vq_bytes,
+         wq_leaf=sorted(wq), lm_head_leaf=sorted(head),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         smoke_reasons=model.extras["smoke_reasons"])
+    check((cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+           cfg.num_kv_heads, cfg.vocab_size, cfg.rope_theta, cfg.qk_norm, cfg.kv_quant)
+          == (32, 4096, 14336, 32, 8, 184622, 1e6, False, True), f"not the 8B config: {cfg}")
+    check(set(wq) == {"q4p", "s"} and set(head) == {"q", "s"}, "not W4A16 with an int8 head")
+    return model
+
+
+def phase_emu3_forward(dev, model):
+    """The kernel forward against the plain forward at Emu3's widths: on the
+    loaded W4A16 weights at full depth, and on random bf16 weights at full
+    width cut to 2 layers (full depth on bf16 would be a second 16 GB
+    draw); both within phase_forward's 5%."""
+    import torch
+
+    from sjd_tpu_torch.models import transformer as pt
+
+    cfg = model.engine.model_cfg
+    bf16_cfg = dataclasses.replace(cfg, num_layers=2)
+    for label, c, params in (("w4a16", cfg, model.params),
+                             ("bf16_2_layers", bf16_cfg, None)):
+        if params is None:
+            params = pt.init_params(5, c, device=dev)
+        logits, launched = _forward_pair(dev, c, params)
+        err = (logits[0] - logits[1]).abs().max().item()
+        scale = logits[1].abs().max().item()
+        ok = math.isfinite(err) and err <= 0.05 * scale
+        want = 2 * (7 * c.num_layers + 1) if label == "w4a16" else 0
+        emit("emu3_forward", weights=label, layers=c.num_layers, max_abs_err=err,
+             max_abs_logit=scale, tolerance=0.05 * scale, ok=ok, launches=launched)
+        check(ok, f"Emu3 {label} kernel forward disagrees with the plain forward")
+        check(launched["auto"]["quant_linear_a16"] == want
+              and launched["auto"]["decode_attention"] == 2 * c.num_layers,
+              f"Emu3 {label}: launches {launched}")
+        del params, logits
+        torch.cuda.empty_cache()
+
+
+def phase_emu3_generate(dev, model):
+    """One 720px image through load_emu3's sample_fn: a 90 x 90 grid, CFG 3.0
+    against the negative prompt, window 16, init="repeat_horizon", on the
+    graph path. Holds the image's shape, the grammar's offsets (<eol> after
+    each of the 90 rows, then eof, <|image end|>, eos) and the launches: each
+    kernel per forward as per_forward() says (the prefill of the 67-row
+    negative prompt takes the plain path: no TPU kernel there)."""
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.models import emu3
+    from sjd_tpu_torch.models.transformer import KERNEL_MAX_T, weight_bytes
+    from sjd_tpu_torch.ops import launch_counts
+
+    eng, ex = model.engine, model.extras
+    cfg = eng.model_cfg
+    table = per_forward(model.params, cfg)
+    ids, neg = ex["prompt_ids_fn"](PROMPT), ex["neg_ids_fn"]()
+    long_prefill = max(len(ids), len(neg)) > KERNEL_MAX_T
+    torch.cuda.reset_peak_memory_stats()
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    t0 = time.time()
+    img = model.sample_fn(PROMPT, 0)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = eng.stats.executed(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = ex["last_result"]
+    n = int(res.length[0])
+    toks = res.tokens[0, :n].tolist()
+    gen = toks[n - int(res.gen_count[0]):]
+    t0 = time.time()
+    again = ex["decode_image_fn"](toks)
+    torch.cuda.synchronize()
+    vq_s = time.time() - t0
+    nfe = int(res.nfe)
+    g = EMU3_GRID
+    end = g * (g + 1)
+    eols = [gen[r * (g + 1) + g] if len(gen) > r * (g + 1) + g else None for r in range(g)]
+    tail = gen[end:end + 3]
+    visual = all(emu3.VISUAL_START <= gen[r * (g + 1) + c] <= emu3.VISUAL_END
+                 for r in range(g) for c in range(g)) if len(gen) >= end else False
+    expected = {k: v * (nfe - (1 if long_prefill and not k.startswith("quant") else 0))
+                for k, v in table.items()}
+    kv_rows = eng._state.kv.k.shape[2]
+    emit("emu3_generate", grid=[g, g], prompt_tokens=len(ids), neg_prompt_tokens=len(neg),
+         tokens_generated=int(res.gen_count[0]), nfe=nfe,
+         tokens_per_forward=int(res.gen_count[0]) / nfe,
+         accept_hist=res.accept_hist.tolist(), wall_s=wall_s, vq_decode_s=vq_s,
+         ms_per_forward=1e3 * (wall_s - vq_s) / nfe, peak_mem_gb=peak,
+         weight_bytes=weight_bytes(model.params), kv_buffer_rows=kv_rows,
+         image_shape=list(img.shape), image_dtype=str(img.dtype),
+         eol_rows=sum(t == emu3.EOL_ID for t in eols), tail=tail, rows_visual=visual,
+         launches=launches, launches_expected=expected, captures=eng.stats.captures,
+         graph_replays=eng.stats.replays, eager_steps=eng.stats.eager_steps,
+         capture_s=eng.stats.capture_s)
+    check(tuple(img.shape) == (8 * g, 8 * g, 3) and str(img.dtype) == "uint8",
+          f"image is {img.shape} {img.dtype}")
+    check((img == again).all(), "a second VQ decode of the same tokens differs")
+    check(all(t == emu3.EOL_ID for t in eols), f"<eol> missing at a row end: {eols[:5]}...")
+    check(tail == [emu3.EOF_ID, emu3.EOI_ID, emu3.EOS_ID], f"the image ends {tail}")
+    check(visual, "a non-visual token inside the grid")
+    check(kv_rows == EMU3_L, f"the KV buffer has {kv_rows} rows, the kernel phases {EMU3_L}")
+    check(eng.stats.captures >= 1 and eng.stats.replays > 0, f"graph path idle: {eng.stats}")
+    for name, k in launches.items():
+        check(k > 0 or table[name] == 0, f"{name} was never launched on the Emu3 path")
+        check(k == expected[name], f"{name}: {k} launches for {nfe} forwards, not "
+                                   f"{expected[name]}")
+    return launches
+
+
+def phase_emu3_understand(dev, model):
+    """Image understanding once at full size: a 720px image through the
+    Emu3VisionVQ encoder into the left-padded 8318-row prompt bucket (the
+    image's 90 x 91 rows and the chat text), prefilled on the plain path
+    in blocks of ATTEND_BLOCK_ROWS query rows, then a short answer."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.models.transformer import ATTEND_BLOCK_ROWS
+
+    g = EMU3_GRID
+    yy, xx = np.mgrid[0:8 * g, 0:8 * g] / (8 * g)
+    img = np.stack([np.sin(6 * xx), np.cos(5 * yy), xx * yy * 2 - 1], -1).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    t0 = time.time()
+    ans = model.extras["understand_fn"]("describe this picture", img, 0, max_new_tokens=32)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    res = model.extras["last_understand_result"]
+    bucket = int(res.length[0]) - len(ans)
+    emit("emu3_understand", seconds=secs, prompt_bucket=bucket, answer_tokens=len(ans),
+         nfe=int(res.nfe), block_rows=ATTEND_BLOCK_ROWS, held_before_gb=held,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(bucket == g * (g + 1) + 128, f"prompt bucket {bucket}")
+    check(len(ans) >= 1 and all(0 <= t < model.engine.model_cfg.vocab_size for t in ans),
+          f"answer {ans[:8]}")
+
+
+def phase_anole(dev):
+    """Anole-7B through load_anole(quantize=4) on random weights: one
+    image-only 512px image (1024 image tokens, then <eoi>) on the graph
+    path with each kernel's launches per forward; a short interleaved run
+    on the same weights; encode_image_fn on a 512px image against a direct
+    VQ encode, decoded back through decode_image_fn."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.data.vocab_translation import img_to_bpe
+    from sjd_tpu_torch.loader import load_anole
+    from sjd_tpu_torch.models import anole
+    from sjd_tpu_torch.models.transformer import weight_bytes
+    from sjd_tpu_torch.models.vq import encode as vq_encode
+    from sjd_tpu_torch.ops import launch_counts
+
+    t0 = time.time()
+    model = load_anole(quantize=4, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    eng, ex = model.engine, model.extras
+    cfg = eng.model_cfg
+    table = per_forward(model.params, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    t0 = time.time()
+    img = model.sample_fn(PROMPT, 0)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = eng.stats.executed(launch_counts())
+    res = ex["last_result"]
+    nfe, n = int(res.nfe), int(res.length[0])
+    ids = ex["prompt_ids_fn"](PROMPT)
+    gen = res.tokens[0, len(ids):n].tolist()
+    isl = eng.image_seq_length
+    emit("anole", mode="image-only", load_s=load_s, weight_bytes=weight_bytes(model.params),
+         prompt_tokens=len(ids), tokens_generated=int(res.gen_count[0]), nfe=nfe,
+         tokens_per_forward=int(res.gen_count[0]) / nfe, accept_hist=res.accept_hist.tolist(),
+         wall_s=wall_s, ms_per_forward=1e3 * wall_s / nfe,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, image_shape=list(img.shape),
+         launches=launches, launches_expected={k: v * nfe for k, v in table.items()},
+         captures=eng.stats.captures, graph_replays=eng.stats.replays)
+    check(tuple(img.shape) == (512, 512, 3) and str(img.dtype) == "uint8",
+          f"image is {img.shape} {img.dtype}")
+    check(ids[-1] == anole.BOI_ID and len(gen) > isl and gen[isl] == anole.EOI_ID
+          and all(anole.IMAGE_VOCAB_START <= t <= anole.IMAGE_VOCAB_END for t in gen[:isl]),
+          f"not {isl} image tokens and <eoi>: {gen[isl - 2:isl + 2]}")
+    for name, k in launches.items():
+        check(k == table[name] * nfe, f"{name}: {k} launches in anole for {nfe} forwards")
+
+    # interleaved: no <boi> in the prompt, text allowed outside images
+    ieng = anole.anole_engine(multimodal_generation_mode="interleaved", max_len=48,
+                              model_cfg=cfg, device=dev)
+    t0 = time.time()
+    ires = ieng.generate(model.params, 1, torch.tensor([ids[:-1]], device=dev))
+    torch.cuda.synchronize()
+    igen = ires.tokens[0, len(ids) - 1:int(ires.length[0])].tolist()
+    opened = anole.BOI_ID in igen
+    stray = sum(anole.IMAGE_VOCAB_START <= t <= anole.IMAGE_VOCAB_END or t == anole.EOI_ID
+                for t in (igen if not opened else igen[:igen.index(anole.BOI_ID)]))
+    emit("anole_interleaved", tokens_generated=int(ires.gen_count[0]), nfe=int(ires.nfe),
+         seconds=time.time() - t0, opened_image=opened, image_tokens_outside_an_image=stray)
+    check(int(ires.gen_count[0]) >= 1 and stray == 0,
+          f"interleaved: {stray} image tokens outside an image")
+    del ieng
+
+    # encode_image_fn on a 512px image
+    rng = np.random.default_rng(13)
+    yy, xx = np.mgrid[0:512, 0:512] / 512
+    arr = np.stack([np.cos(4 * xx), np.sin(7 * yy), xx - yy], -1)
+    arr = np.clip(arr + 0.1 * rng.standard_normal(arr.shape), -1, 1).astype(np.float32)
+    t0 = time.time()
+    bpe = ex["encode_image_fn"](arr)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t0
+    with torch.no_grad():
+        direct = vq_encode(ex["vq_params"], ex["vq_cfg"],
+                           torch.from_numpy(arr[None]).to(dev))[0].cpu().numpy()
+    same = bpe == img_to_bpe(ex["mapping"], direct.astype(np.int32)).tolist()
+    back = ex["decode_image_fn"]([anole.BOI_ID] + bpe + [anole.EOI_ID])
+    emit("anole_encode", image=[512, 512], tokens=len(bpe), encode_s=enc_s,
+         equals_direct_encode=same, decoded_shape=list(back.shape))
+    check(len(bpe) == isl and same, "encode_image_fn disagrees with the VQ encode")
+    check(tuple(back.shape) == (512, 512, 3), f"decoded {back.shape}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1527,6 +1899,7 @@ def main() -> int:
     phase_build()
     kernels = [phase_epilogue(dev), phase_attention(dev)]
     kernels += phase_quant_kernels(dev)
+    kernels += [phase_epilogue_emu3(dev), phase_attention_emu3(dev)]
     phase_forward(dev)
     phase_quant_forward(dev)
     model = phase_load(dev)
@@ -1572,7 +1945,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_chameleon_34b(dev)
+    # Emu3-Gen 8B at 720px, then Anole-7B
+    from sjd_tpu_torch.models.emu3 import emu3_engine
+
+    emodel = phase_emu3_load(dev)
+    ecfg = emodel.engine.model_cfg
+    phase_emu3_forward(dev, emodel)
+    phase_graph(dev, emodel.params, ecfg, emodel.extras["prompt_ids_fn"](PROMPT),
+                label="emu3_graph", neg_ids=emodel.extras["neg_ids_fn"](),
+                make_engine=lambda graph: emu3_engine(cuda_graph=graph, model_cfg=ecfg,
+                                                      init="repeat_horizon", device=dev))
+    e_launches = phase_emu3_generate(dev, emodel)
+    phase_emu3_understand(dev, emodel)
+    del emodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_anole(dev)
     for k in kernels:
+        if k.get("case") == "emu3":
+            k["launches"] = e_launches[k["name"]]
+            continue
         k["launches"] = {"quant_linear_a16": a16, "quant_linear_a8": a8}.get(
             k["name"], launches)[k["name"]]
     emit("done", seconds=time.time() - t_start)

@@ -7,7 +7,8 @@ and its config dataclasses; nothing here imports JAX or ``sjd_tpu``.
     already torch's ``F.linear`` layout.
   * bf16 arrays (ml_dtypes) go through float32 before ``torch.bfloat16``,
     because ``torch.from_numpy`` refuses them; the values are unchanged.
-  * VQ convolution weights are HWIO in JAX and become OIHW.
+  * VQ convolution weights are HWIO in JAX and become OIHW; the Emu3 VQ's
+    3-D ones are DHWIO and become OIDHW.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from . import resolve_device
 from .models.transformer import DecoderConfig
+from .models.vq.emu3_vq import Emu3VQConfig
 from .models.vq.taming import VQConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -57,11 +59,19 @@ def decoder_config_from_jax(jcfg, **overrides) -> DecoderConfig:
     return DecoderConfig(**kw)
 
 
-def vq_config_from_jax(jcfg) -> VQConfig:
-    names = {f.name for f in dataclasses.fields(VQConfig)}
+def _vq_config(cls, jcfg):
+    names = {f.name for f in dataclasses.fields(cls)}
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
           if f.name in names and f.name != "dtype"}
-    return VQConfig(dtype=torch_dtype(jcfg.dtype), **kw)
+    return cls(dtype=torch_dtype(jcfg.dtype), **kw)
+
+
+def vq_config_from_jax(jcfg) -> VQConfig:
+    return _vq_config(VQConfig, jcfg)
+
+
+def emu3_vq_config_from_jax(jcfg) -> Emu3VQConfig:
+    return _vq_config(Emu3VQConfig, jcfg)
 
 
 def _pack_int4(q: np.ndarray) -> np.ndarray:
@@ -131,4 +141,24 @@ def vq_params_from_jax(np_tree: dict, cfg: VQConfig, device=None) -> dict:
     if tuple(params["codebook"].shape) != (cfg.n_embed, cfg.embed_dim):
         raise ValueError(f"codebook is {tuple(params['codebook'].shape)}, config "
                          f"wants {(cfg.n_embed, cfg.embed_dim)}")
+    return params
+
+
+def emu3_vq_params_from_jax(np_tree: dict, cfg: Emu3VQConfig, device=None) -> dict:
+    """sjd_tpu Emu3 VQ params (numpy leaves) -> the port's: 2-D convolution
+    weights HWIO -> OIHW, 3-D ones DHWIO -> OIDHW, the rest as they are."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        t = tensor_from_numpy(a, dev)
+        if t.dim() == 4:
+            return t.permute(3, 2, 0, 1).contiguous()
+        if t.dim() == 5:
+            return t.permute(4, 3, 0, 1, 2).contiguous()
+        return t
+
+    params = _tree(np_tree, leaf)
+    if tuple(params["codebook"].shape) != (cfg.codebook_size, cfg.embed_dim):
+        raise ValueError(f"codebook is {tuple(params['codebook'].shape)}, config "
+                         f"wants {(cfg.codebook_size, cfg.embed_dim)}")
     return params

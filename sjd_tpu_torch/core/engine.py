@@ -216,6 +216,11 @@ class SJDEngine:
         self._graph: Optional[_Graph] = None  # captured over self._state
         self._warm = False  # the warm-up step ran on self._state
         self._stream = None  # the side stream of warm-up and capture
+        # batch -> GrammarState, for generate/refill calls that pass no
+        # gstate; a family whose grammar needs a pre-armed state (Emu3's
+        # grid) installs it, else the default init_state would leave that
+        # grammar a no-op
+        self.default_gstate: Optional[Callable[[int], grammar_lib.GrammarState]] = None
 
     @property
     def device(self) -> torch.device:
@@ -368,7 +373,8 @@ class SJDEngine:
             prompt_mask = torch.ones(prompt.shape, dtype=torch.bool, device=dev)
         prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.bool, device=dev)
         if gstate is None:
-            gstate = grammar_lib.init_state(prompt.shape[0], device=dev)
+            gstate = (self.default_gstate(prompt.shape[0]) if self.default_gstate is not None
+                      else grammar_lib.init_state(prompt.shape[0], device=dev))
         if self.sampling.do_cfg and self.config.cfg_mode == "neg_prompt":
             if neg_prompt is None:
                 raise ValueError("cfg_mode=neg_prompt requires neg_prompt")

@@ -1,8 +1,10 @@
-"""Model loading (sjd_tpu/loader.py): ``load_lumina_mgpt``.
+"""Model loading (sjd_tpu/loader.py): ``load_lumina_mgpt``, ``load_emu3``,
+``load_anole`` and the ``load_pretrained_model`` registry.
 
 The decoder comes from a checkpoint directory (``ckpt_dir``: sharded
 ``.safetensors``, ``pytorch_model*.bin``, ``.pt`` or ``.pth``, HF naming)
-and the VQGAN from one file (``vq_ckpt``, taming naming), read by
+and the VQGAN from one file (``vq_ckpt``, taming naming; Emu3VisionVQ from
+a directory, ``vq_ckpt_dir``), read by
 ``utils/port.py`` with no package beyond torch; prompts go through a
 tokenizer (``tokenizer``: any object with ``encode`` and, for the image
 tokens' mapping, ``get_vocab``). Each part that is not given falls back:
@@ -234,3 +236,327 @@ def load_lumina_mgpt(
     return LoadedModel(name="lumina_mgpt", engine=eng, params=params,
                        sample_fn=sample_fn,
                        extras=_mark_smoke(extras, "lumina_mgpt", smoke))
+
+
+def _image_to_array(image) -> np.ndarray:
+    """A PIL image -> [H, W, 3] float32 in [-1, 1]; arrays pass through (they
+    are taken as already normalised)."""
+    if hasattr(image, "convert") and not isinstance(image, (np.ndarray, torch.Tensor)):
+        return np.asarray(image.convert("RGB"), np.float32) / 127.5 - 1.0
+    return np.asarray(image, np.float32)
+
+
+def load_emu3(
+    ckpt_dir: Optional[str] = None,
+    vq_ckpt_dir: Optional[str] = None,
+    *,
+    h: int = 90,
+    w: int = 90,
+    window: int = 16,
+    guidance_scale: float = 3.0,
+    image_top_k: int = 2048,
+    scheme: str = "speculative_jacobi",
+    init: str = "random",
+    tokenizer=None,  # any object with encode over the Emu3 vocabulary
+    tokenizer_dir: Optional[str] = None,  # emu3.tiktoken + emu3_vision_tokens.txt
+    negative_prompt_ids=None,
+    negative_prompt: Optional[str] = None,
+    positive_suffix: Optional[str] = None,
+    quantize=True,  # True/8: W8A16; 4/"int4": W4A16 + int8 head; "w4a8": W4A8
+    embed_bits: Optional[int] = None,  # 8: the int8 per-row embedding table
+    vq_dtype: Optional[torch.dtype] = None,  # e.g. torch.bfloat16 for the VQ
+    model_cfg=None,  # DecoderConfig override; must keep the Emu3 vocab layout
+    vq_cfg=None,  # Emu3VQConfig override
+    device=None,
+) -> LoadedModel:
+    """Emu3-Gen (sjd_tpu/loader.py:load_emu3): the decoder from ``ckpt_dir``
+    (HF names, GQA) or random, Emu3VisionVQ from ``vq_ckpt_dir`` or random
+    (seed 1), prompts from ``tokenizer`` (or ``tokenizer_dir``'s tiktoken
+    files) or placeholders. ``sample_fn(prompt)`` -> uint8 [8h, 8w, 3] with
+    CFG against ``negative_prompt``; ``understand_fn(question, image)`` ->
+    the answer's token ids (no CFG, no grammar)."""
+    from .data.emu3_processor import build_gen_prompt, extract_image_grid
+    from .models.emu3 import emu3_engine, emu3_grammar_state
+    from .models.vq.emu3_port import init_emu3_vq_params, port_emu3_vq
+    from .models.vq.emu3_vq import EMU3_VQ, decode as emu3_decode
+    from .utils.emu3_tokenizer import (
+        DEFAULT_NEGATIVE_PROMPT, DEFAULT_POSITIVE_SUFFIX, Emu3Tokenizer)
+
+    dev = resolve_device(device)
+    if tokenizer is None and tokenizer_dir:
+        import os
+
+        tokenizer = Emu3Tokenizer(os.path.join(tokenizer_dir, "emu3.tiktoken"),
+                                  os.path.join(tokenizer_dir, "emu3_vision_tokens.txt"))
+    eng = emu3_engine(h=h, w=w, window=window, guidance_scale=guidance_scale,
+                      image_top_k=image_top_k, scheme=scheme, init=init,
+                      act_quant=_act_quant_of(quantize), model_cfg=model_cfg,
+                      device=dev)
+    params = _build_decoder_params(eng.model_cfg, ckpt_dir, quantize, embed_bits, dev)
+    vq_cfg = vq_cfg if vq_cfg is not None else EMU3_VQ
+    if vq_dtype is not None:
+        vq_cfg = dataclasses.replace(vq_cfg, dtype=vq_dtype)
+    if vq_ckpt_dir:
+        from .utils.port import load_sharded_state
+
+        vq_params = port_emu3_vq(load_sharded_state(vq_ckpt_dir), vq_cfg, device=dev)
+    else:
+        vq_params = init_emu3_vq_params(1, vq_cfg, device=dev)
+    if vq_dtype is not None:  # the codebook too, as the JAX loader casts it
+        vq_params["codebook"] = vq_params["codebook"].to(vq_dtype)
+    positive_suffix = DEFAULT_POSITIVE_SUFFIX if positive_suffix is None else positive_suffix
+    negative_prompt = DEFAULT_NEGATIVE_PROMPT if negative_prompt is None else negative_prompt
+    extras: dict = {"vq_params": vq_params, "vq_cfg": vq_cfg, "tokenizer": tokenizer,
+                    "negative_prompt": negative_prompt, "last_result": None,
+                    "quantize": quantize, "embed_bits": embed_bits}
+
+    def _placeholder_ids(text: str, n: int):
+        """Stable placeholder text ids (the JAX loader hashes with Python's
+        per-process ``hash``)."""
+        c = zlib.crc32(text.encode())
+        return [(c >> (4 * i)) % 1000 + 1000 for i in range(n)]
+
+    def prompt_ids_fn(prompt: str):
+        """Text -> the full generation prompt: bos + text + boi + "{H}*{W}" +
+        the <|image token|> marker (the positive suffix appended to the
+        text when a tokenizer is given)."""
+        if tokenizer is not None:
+            return build_gen_prompt(list(tokenizer.encode(prompt + positive_suffix)), h, w,
+                                    lambda s: list(tokenizer.encode(s)))
+        return build_gen_prompt(_placeholder_ids(prompt, 12), h, w, lambda s: [1500])
+
+    def neg_ids_fn():
+        """The negative prompt, a full generation prompt of its own."""
+        if negative_prompt_ids is not None:
+            return list(negative_prompt_ids)
+        if tokenizer is not None:
+            return build_gen_prompt(list(tokenizer.encode(negative_prompt)), h, w,
+                                    lambda s: list(tokenizer.encode(s)))
+        return build_gen_prompt(_placeholder_ids(negative_prompt, 8), h, w, lambda s: [1500])
+
+    def decode_image_fn(toks) -> np.ndarray:
+        """A generated token row (prompt and generation) -> uint8 image."""
+        grid = extract_image_grid([int(t) for t in toks])
+        with torch.no_grad():
+            pixels = emu3_decode(vq_params, vq_cfg, torch.as_tensor(grid[None], device=dev))
+        return pixels_to_uint8(pixels[0])
+
+    def sample_fn(prompt: str, rng_seed: int = 42) -> np.ndarray:
+        ids = prompt_ids_fn(prompt)
+        res = eng.generate(params, rng_seed, torch.tensor([ids], dtype=torch.int32, device=dev),
+                           neg_prompt=torch.tensor([neg_ids_fn()], dtype=torch.int32,
+                                                   device=dev),
+                           gstate=emu3_grammar_state(1, h, w, device=dev))
+        extras["last_result"] = res
+        return decode_image_fn(res.tokens[0, : int(res.length[0])].tolist())
+
+    u_state: dict = {}
+
+    def _understand_engine(max_new_tokens: int):
+        """The understanding engine, built once per answer budget: the
+        prompt left-padded to one bucket, so every question reuses one
+        state and graph; the rope table covers the bucket and the answer."""
+        from .core.engine import SJDEngine
+        from .core.grammar import GrammarSpec
+        from .core.processors import SamplingParams
+        from .models.adapter import decoder_model_fns
+        from .models.emu3 import EOS_ID
+
+        key = ("engine", max_new_tokens)
+        if key not in u_state:
+            p_bucket = h * (w + 1) + 128  # the image's rows + header, template, text
+            u_model = decoder_model_fns(
+                eng.model_cfg, device=dev,
+                max_positions=max(eng.model_cfg.max_position_embeddings or 0,
+                                  p_bucket + max_new_tokens + window + 8))
+            u_state[key] = (SJDEngine(
+                u_model, dataclasses.replace(eng.config, cfg_mode="none",
+                                             max_len=max_new_tokens, eos_id=EOS_ID),
+                GrammarSpec(kind="none"),
+                SamplingParams(do_cfg=False, image_top_k=10, text_top_k=10)), p_bucket)
+        return u_state[key]
+
+    def understand_fn(question: str, image, rng_seed: int = 42,
+                      max_new_tokens: int = 256) -> list:
+        """Image understanding: pixels (PIL, or [H, W, 3] in [-1, 1]) ->
+        Emu3VisionVQ codes -> the chat prompt -> the answer's token ids."""
+        from .data.emu3_processor import build_understanding_prompt
+        from .models.emu3 import PAD_ID
+        from .models.vq.emu3_vq import encode as emu3_encode
+
+        if tokenizer is None:
+            raise ValueError("understanding mode needs the tokenizer")
+        arr = _image_to_array(image)
+        with torch.no_grad():
+            grid = emu3_encode(vq_params, vq_cfg,
+                               torch.from_numpy(arr[None]).to(dev))[0].cpu().numpy()
+        ids = build_understanding_prompt(question, grid.astype(np.int32),
+                                         lambda s: list(tokenizer.encode(s)))
+        u_eng, p_bucket = _understand_engine(max_new_tokens)
+        if len(ids) > p_bucket:
+            raise ValueError(f"prompt {len(ids)} tokens exceeds the {p_bucket} bucket")
+        pad = p_bucket - len(ids)
+        prompt = torch.tensor([[PAD_ID] * pad + ids], dtype=torch.int32, device=dev)
+        mask = torch.tensor([[False] * pad + [True] * len(ids)], device=dev)
+        res = u_eng.generate(params, rng_seed, prompt, prompt_mask=mask)
+        extras["last_understand_result"] = res
+        return res.tokens[0, p_bucket: int(res.length[0])].tolist()
+
+    def make_gstate(metas):
+        """Per-slot grammar state for a batcher: every slot has this grid."""
+        return emu3_grammar_state(len(metas), h, w, device=dev)
+
+    extras.update(understand_fn=understand_fn, prompt_ids_fn=prompt_ids_fn,
+                  neg_ids_fn=neg_ids_fn, decode_image_fn=decode_image_fn,
+                  make_gstate=make_gstate)
+    smoke = []
+    if not ckpt_dir:
+        smoke.append("random decoder weights (no ckpt_dir)")
+    if not vq_ckpt_dir:
+        smoke.append("random VisionVQ (no vq_ckpt_dir)")
+    if tokenizer is None:
+        smoke.append("placeholder prompt ids (no tokenizer)")
+    return LoadedModel(name="emu3", engine=eng, params=params, sample_fn=sample_fn,
+                       extras=_mark_smoke(extras, "emu3", smoke))
+
+
+def load_anole(
+    ckpt_dir: Optional[str] = None,
+    vq_ckpt: Optional[str] = None,
+    *,
+    window: int = 16,
+    guidance_scale: float = 7.0,
+    image_top_k: int = 2000,
+    text_top_k: int = 10,
+    scheme: str = "speculative_jacobi",
+    init: str = "random",
+    multimodal_generation_mode: str = "image-only",
+    tokenizer=None,  # any object with encode (and get_vocab for the image tokens)
+    quantize=False,
+    embed_bits: Optional[int] = None,
+    model_cfg=None,  # DecoderConfig override
+    vq_cfg=None,  # VQConfig override
+    image_seq_length: int = 1024,  # tokens per image (32 x 32 latents)
+    device=None,
+) -> LoadedModel:
+    """Anole-7B (sjd_tpu/loader.py:load_anole): the Chameleon backbone with a
+    fixed ``image_seq_length``-token image after <boi>, and the Chameleon
+    VQGAN. ``sample_fn(prompt)`` -> uint8 image (token ids in text-only
+    mode); ``encode_image_fn(image)`` -> the image's BPE ids."""
+    import math
+
+    from .data.vocab_translation import (
+        bpe_to_img, identity_mapping, img_to_bpe, mapping_from_tokenizer)
+    from .models.anole import BOI_ID, anole_engine, normalize_mode
+    from .models.vq import CHAMELEON_VQ, decode as vq_decode, encode as vq_encode
+    from .models.vq import init_vq_params, port_vqgan
+
+    dev = resolve_device(device)
+    mode = normalize_mode(multimodal_generation_mode)
+    eng = anole_engine(window=window, guidance_scale=guidance_scale, image_top_k=image_top_k,
+                       text_top_k=text_top_k, scheme=scheme, init=init,
+                       multimodal_generation_mode=mode, act_quant=_act_quant_of(quantize),
+                       model_cfg=model_cfg, image_seq_length=image_seq_length,
+                       device=dev)
+    params = _build_decoder_params(eng.model_cfg, ckpt_dir, quantize, embed_bits, dev)
+    vq_cfg = vq_cfg if vq_cfg is not None else CHAMELEON_VQ
+    if vq_ckpt:
+        from .utils.port import load_torch_checkpoint
+
+        vq_params = port_vqgan(load_torch_checkpoint(vq_ckpt), vq_cfg, device=dev)
+    else:
+        vq_params = init_vq_params(1, vq_cfg, device=dev)
+    if tokenizer is not None and hasattr(tokenizer, "get_vocab"):
+        mapping = mapping_from_tokenizer(tokenizer)
+    else:
+        mapping = identity_mapping(vq_cfg.n_embed, 4)
+    isl = image_seq_length
+    side = math.isqrt(isl)
+    if side * side != isl:
+        raise ValueError("image_seq_length must be a square grid")
+    extras: dict = {"vq_params": vq_params, "vq_cfg": vq_cfg, "mapping": mapping,
+                    "multimodal_generation_mode": multimodal_generation_mode,
+                    "boi_id": BOI_ID, "last_result": None, "quantize": quantize}
+
+    def prompt_ids_fn(prompt: str):
+        """Text -> prompt ids, <boi> appended in image-only mode. Without a
+        tokenizer the ids are placeholders from a stable hash."""
+        if tokenizer is not None:
+            ids = list(tokenizer.encode(prompt))
+        else:
+            c = zlib.crc32(prompt.encode())
+            ids = [(c >> (4 * i)) % 4000 + 9000 for i in range(12)]
+        return ids + [BOI_ID] if mode == "image-only" else ids
+
+    def _decode_span(toks, start) -> np.ndarray:
+        grid = np.asarray(toks[start: start + isl], np.int32).reshape(side, side)
+        ids = torch.as_tensor(bpe_to_img(mapping, grid).reshape(1, -1), device=dev)
+        with torch.no_grad():
+            pixels = vq_decode(vq_params, vq_cfg, ids, (side, side))
+        return pixels_to_uint8(pixels[0])
+
+    def _image_start(toks):
+        """The first position after a <boi> that a whole image follows."""
+        start = next((k + 1 for k, t in enumerate(toks)
+                      if t == BOI_ID and len(toks) - k > isl), None)
+        if start is None:
+            raise ValueError("no complete image in the generation")
+        return start
+
+    def sample_fn(prompt: str, rng_seed: int = 42):
+        ids = prompt_ids_fn(prompt)
+        res = eng.generate(params, rng_seed, torch.tensor([ids], dtype=torch.int32, device=dev))
+        extras["last_result"] = res
+        toks = res.tokens[0, : int(res.length[0])].tolist()
+        if mode == "text-only":
+            return toks[len(ids):]  # token ids: detokenizing is the caller's
+        if mode == "image-only":
+            return _decode_span(toks, len(ids))  # <boi> ends the prompt
+        return _decode_span(toks, len(ids) + _image_start(toks[len(ids):]))
+
+    def decode_image_fn(toks) -> np.ndarray:
+        """A token row -> the image of its first whole <boi> span (left
+        padding and prompt length do not matter)."""
+        toks = [int(t) for t in toks]
+        return _decode_span(toks, _image_start(toks))
+
+    def encode_image_fn(image) -> list:
+        """Pixels (PIL, or [H, W, 3] in [-1, 1]) -> VQ codes -> BPE image-token
+        ids, to splice between <boi> and <eoi>."""
+        arr = _image_to_array(image)
+        with torch.no_grad():
+            ids = vq_encode(vq_params, vq_cfg, torch.from_numpy(arr[None]).to(dev))
+        return img_to_bpe(mapping, ids[0].cpu().numpy().astype(np.int32)).tolist()
+
+    extras.update(prompt_ids_fn=prompt_ids_fn, decode_image_fn=decode_image_fn,
+                  encode_image_fn=encode_image_fn)
+    smoke = []
+    if not ckpt_dir:
+        smoke.append("random decoder weights (no ckpt_dir)")
+    if not vq_ckpt:
+        smoke.append("random VQ decoder (no vq_ckpt)")
+    if tokenizer is None:
+        smoke.append("placeholder prompt ids + offset vocab mapping (no tokenizer)")
+    return LoadedModel(name="anole", engine=eng, params=params, sample_fn=sample_fn,
+                       extras=_mark_smoke(extras, "anole", smoke))
+
+
+def _load_llamagen(**kwargs):
+    raise NotImplementedError("LlamaGen is not ported yet")
+
+
+_REGISTRY = {
+    "lumina_mgpt": load_lumina_mgpt,
+    "anole": load_anole,
+    "emu3": load_emu3,
+    "llamagen": _load_llamagen,
+}
+
+
+def load_pretrained_model(model_name: str, **kwargs) -> LoadedModel:
+    """Dispatch on a substring of the name; "llamagen" raises until it is
+    ported."""
+    for key, fn in _REGISTRY.items():
+        if key in model_name.lower():
+            return fn(**kwargs)
+    raise ValueError(f"unknown model {model_name!r}; known: {list(_REGISTRY)}")

@@ -1,6 +1,6 @@
 """sjd_tpu_torch imports neither JAX nor any module of sjd_tpu, and none of
-safetensors, transformers, tokenizers, sentencepiece and PIL when its
-modules are imported: the machine with the GPU has none of them, so such an
+safetensors, transformers, tokenizers, sentencepiece, PIL and tiktoken when
+its modules are imported (the Emu3 and Anole modules included): the machine with the GPU has none of them, so such an
 import would break the port there."""
 
 import json
@@ -15,14 +15,14 @@ _PROBE = r"""
 import importlib, json, pkgutil, sys
 # any import of these now raises ImportError
 for blocked in ("jax", "jaxlib", "safetensors", "transformers", "tokenizers",
-                "sentencepiece", "PIL"):
+                "sentencepiece", "PIL", "tiktoken"):
     sys.modules[blocked] = None
 import sjd_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "sjd_tpu" or m.startswith("sjd_tpu."))
-print(json.dumps({"n_modules": len(names), "leaked": leaked}))
+print(json.dumps({"n_modules": len(names), "names": names, "leaked": leaked}))
 """
 
 
@@ -33,5 +33,8 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     expected = len(list(pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")))
-    assert seen["n_modules"] == expected >= 25
+    assert seen["n_modules"] == expected >= 31
+    for name in ("models.emu3", "models.anole", "models.vq.emu3_vq", "models.vq.emu3_port",
+                 "data.emu3_processor", "utils.emu3_tokenizer"):
+        assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

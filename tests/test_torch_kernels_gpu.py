@@ -80,6 +80,9 @@ EPILOGUE_CASES = {
     "prefill15": ((2, 15, 32, 32, 128, 2, 256, 0), (0, 0)),  # the 15-token prompt
     # Chameleon-34B: 64 query heads over 8 KV heads, 48 layers, the last one
     "chameleon34b": ((2, 16, 64, 8, 128, 48, 2560, 47), (2400, 150)),
+    # Emu3-Gen 8B: 32 query heads over 8 KV heads, 32 layers, a 720px
+    # image's buffer (8.2k generated rows), the last layer
+    "emu3": ((2, 16, 32, 8, 128, 32, 8704, 31), (8190, 40)),
 }
 
 
@@ -144,6 +147,11 @@ ATTENTION_CASES = {
     "w32": ((2, 32, 32, 32, 128, 1, 1024), (600, 77), (0, 20)),  # two groups of 16 rows
     # Chameleon-34B: a query group of 8 (128 rows per KV head), 48 layers
     "chameleon34b": ((2, 16, 64, 8, 128, 48, 2560), (2400, 150), (0, 14)),
+    # Emu3-Gen 8B: GQA group 4 (64 query rows per KV head), a 720px image's
+    # buffer, the negative prompt's half left-padded; fills early, mid, last
+    "emu3_fill150": ((2, 16, 32, 8, 128, 2, 8704), (150, 150), (0, 4)),
+    "emu3_fill4000": ((2, 16, 32, 8, 128, 2, 8704), (4000, 4000), (0, 4)),
+    "emu3_fill8190": ((2, 16, 32, 8, 128, 2, 8704), (8190, 8190), (0, 4)),
 }
 
 
@@ -266,6 +274,40 @@ def test_chameleon34b_heads_forward_kernel_path_matches_plain_path(cuda):
     valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
     valid[1, :P - 1] = False
     pos = torch.clamp_min(torch.cumsum(valid[:, :P].int(), 1) - 1, 0)
+    pos_w = pos[:, -1:] + 1 + torch.arange(W, device=cuda)
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
+        kv = pt.init_kv_cache(c, S, L, device=cuda)
+        zero = torch.zeros((S,), dtype=torch.int32, device=cuda)
+        pt.forward(params, c, ids[:, :P], pos, kv, zero, valid, rope)
+        outs.append(pt.forward(params, c, ids[:, P:], pos_w, kv, zero + P, valid,
+                               rope).logits)
+    err = (outs[0] - outs[1]).abs().max().item()
+    assert torch.isfinite(outs[0]).all()
+    assert err <= 0.05 * outs[1].abs().max().item(), err
+
+
+def test_emu3_heads_forward_kernel_path_matches_plain_path(cuda):
+    """Emu3's attention shape in a 2-layer decoder: 32 query heads over 8 KV
+    heads of 128, no qk-norm, RoPE theta 1e6 at positions past 8k, W4A16
+    weights (K1), int8 cache; a prefill and a window through the kernels
+    against attn_impl="plain"."""
+    import dataclasses
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.emu3 import emu3_config
+
+    cfg = dataclasses.replace(emu3_config(), vocab_size=1024, hidden_size=1024,
+                              intermediate_size=2048, num_layers=2, kv_quant=True)
+    params = pt.quantize_weights(pt.init_params(0, cfg, device=cuda), bits=4, head_bits=8,
+                                 config=cfg)
+    rope = pt.make_rope_table(cfg, 9216, device=cuda)
+    S, P, W, L = 2, 12, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.randint(0, 1024, (S, P + W), generator=gen, device=cuda)
+    valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
+    valid[1, :4] = False  # the shorter negative prompt's left padding
+    pos = 8000 + torch.clamp_min(torch.cumsum(valid[:, :P].int(), 1) - 1, 0)
     pos_w = pos[:, -1:] + 1 + torch.arange(W, device=cuda)
     outs = []
     for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
@@ -447,6 +489,30 @@ def test_quant_linear_kernels_match_plain(cuda, case, bits, a8):
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
         _bf16_close(got, want)
+
+
+# Emu3-Gen 8B's weights (N, K, bits): wk/wv, w_gate/w_up, w_down, and the
+# int8 head of 184622 rows (not a multiple of the block's 128)
+EMU3_QUANT_SHAPES = {"wk": (1024, 4096, 4), "w_gate": (14336, 4096, 4),
+                     "w_down": (4096, 14336, 4), "lm_head": (184622, 4096, 8)}
+
+
+@pytest.mark.parametrize("M", [32, 64])
+@pytest.mark.parametrize("weight", list(EMU3_QUANT_SHAPES))
+def test_quant_linear_a16_emu3_shapes_match_plain(cuda, weight, M):
+    """K1 at Emu3's weight shapes and the generate and serve windows' rows,
+    within one bf16 rounding of its plain version."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    N, K, bits = EMU3_QUANT_SHAPES[weight]
+    x, q, s = _quant_inputs(cuda, M, N, K, bits, seed=M)
+    before = ql.quant_linear_a16.launches
+    got = ql.quant_linear_a16(x, q, s, bits=bits)
+    want = ql.quant_linear_a16_plain(x, q, s, bits=bits)
+    assert ql.quant_linear_a16.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _bf16_close(got, want)
 
 
 @pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
