@@ -101,8 +101,35 @@ and Emu3-Gen 8B at 720px and Anole-7B:
   22. anole  - load_anole(quantize=4): one image-only 512px image (1024
                tokens and <eoi>) with its launches per forward, a short
                interleaved run, encode_image_fn against a direct encode.
+  (Emu3 and Anole pass kv_quant=True: their loaders' default cache is
+  bf16, as the JAX loaders'; 3c times the bf16 attention too.)
 
-Each of the paths 6-8, 10-11, 14-17 and 19-22 starts from kernel launch counts of 0 and
+and LlamaGen GPT-XL (20 heads of 64, 36 layers, 2-D RoPE, bf16 cache):
+
+  3d. epilogue_llamagen, attention_llamagen - both TPU kernels at GPT-XL's
+               shapes over the 512px image's 1536-row buffer, bf16 and int8,
+               the cos/sin rows from the 2-D table, the caption's left
+               padding masked (attention fills 150, 600 and 1140);
+  23. llamagen_load - load_llamagen(name="GPT-XL", model_type="t2i",
+               latent_size=32): random GPT, caption embedder and VQ-16, and
+               a random T5 encoder at flan-t5-xl's widths (f32) behind a stub
+               tokenizer; the caption's T5 encode time;
+  24. llamagen_forward, llamagen_graph - the kernel forward within 5% of the
+               plain one at full depth, and phase 6's check of 32 replayed
+               steps from the caption's embeddings;
+  25. llamagen_t2i - one 512px image (CFG 7.5, window 16, top-k 1000): 1024
+               image tokens, 36 launches of each TPU kernel per decode
+               forward (the 120-row prefill takes the plain path);
+  26. llamagen_bench - bench.py:bench_llamagen's row: 256px t2i from
+               stand-in T5 features, SJD and AR (window 1) on the same card;
+  27. llamagen_stream - StreamingBatcher in embedding mode: 3 captions
+               through 2 slots at 256px on W4A16 weights, each equal to its
+               solo run, one capture for the whole stream;
+  28. llamagen_c2i - load_llamagen(model_type="c2i", quantize=4): the W4A16
+               kernel forward (K1 at d 1280) within 5%, one image of class
+               207 at 256px with every kernel's launches per forward.
+
+Each of the paths 6-8, 10-11, 14-17, 19-22 and 24-28 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -231,18 +258,20 @@ def phase_build():
 
 
 def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
-                   Hkv: int = 32, NL: int = 32, layer: int = 17, qk_norm: bool = True):
+                   Hkv: int = 32, NL: int = 32, layer: int = 17, qk_norm: bool = True,
+                   D: int = 128, quantize: bool = True, rope=None):
     """``fused_epilogue_into_cache`` against its plain version over a whole
-    ``NL``-layer int8 cache filled with sentinels, at ``S`` rows and per-row
-    fills ``ends``, with or without the qk LayerNorm: the window's rows
-    within tolerance, every other row unchanged. Times both; returns the
-    case's row."""
+    ``NL``-layer cache (int8 with scales, or bf16 without ``quantize``)
+    filled with sentinels, at ``S`` rows and per-row fills ``ends``, with or
+    without the qk LayerNorm, on random angles or on ``rope``'s (cos, sin)
+    rows: the window's rows within tolerance, every other row unchanged.
+    Times both; returns the case's row."""
     import torch
 
     from sjd_tpu_torch.ops.fused_epilogue import (
         fused_epilogue_into_cache, fused_epilogue_into_cache_plain)
 
-    T, D = 16, 128
+    T = 16
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*shape):
@@ -252,13 +281,19 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
     norms = ((1 + 0.1 * r(H, D)).to(torch.bfloat16), (0.1 * r(H, D)).to(torch.bfloat16),
              (1 + 0.1 * r(Hkv, D)).to(torch.bfloat16), (0.1 * r(Hkv, D)).to(torch.bfloat16))
     ang = 3 * torch.rand((S, T, D), generator=g, device=dev)
+    cos, sin = (ang.cos().contiguous(), ang.sin().contiguous()) if rope is None else rope
     cache_end = torch.tensor(ends, dtype=torch.int32, device=dev)
-    # sentinels the kernel never writes: code -128, scale -1
-    sentinel = [torch.full((S, NL, L, Hkv, D), -128, dtype=torch.int8, device=dev),
-                torch.full((S, NL, L, Hkv), -1.0, dtype=torch.bfloat16, device=dev)]
-    caches = {who: [sentinel[0].clone(), sentinel[0].clone(), sentinel[1].clone(),
-                    sentinel[1].clone()] for who in ("kernel", "plain")}
-    args = (qp, kp, vp, *norms, ang.cos().contiguous(), ang.sin().contiguous())
+    # sentinels the kernel never writes: code -128 and scale -1, or -3.0
+    if quantize:
+        sentinel = [torch.full((S, NL, L, Hkv, D), -128, dtype=torch.int8, device=dev),
+                    torch.full((S, NL, L, Hkv), -1.0, dtype=torch.bfloat16, device=dev)]
+        caches = {who: [sentinel[0].clone(), sentinel[0].clone(), sentinel[1].clone(),
+                        sentinel[1].clone()] for who in ("kernel", "plain")}
+    else:
+        sentinel = [torch.full((S, NL, L, Hkv, D), -3.0, dtype=torch.bfloat16, device=dev)]
+        caches = {who: [sentinel[0].clone(), sentinel[0].clone(), None, None]
+                  for who in ("kernel", "plain")}
+    args = (qp, kp, vp, *norms, cos, sin)
     if not qk_norm:  # no affines: the kernel reads none
         args = (qp, kp, vp, None, None, None, None, *args[7:])
     kw = dict(layer=layer, num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=qk_norm)
@@ -272,8 +307,8 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
     win = [(s, layer, slice(e, e + T)) for s, e in enumerate(ends)]
     errs = {"q": (q.float() - q_want.float()).abs().max().item()}
     peaks, untouched = {}, True
-    for name, got, want, sent in zip(("k_code", "v_code", "k_scale", "v_scale"),
-                                     caches["kernel"], caches["plain"],
+    names = ("k_code", "v_code", "k_scale", "v_scale") if quantize else ("k", "v")
+    for name, got, want, sent in zip(names, caches["kernel"], caches["plain"],
                                      sentinel[:1] * 2 + sentinel[1:] * 2):
         gw = torch.stack([got[i] for i in win]).float()
         ww = torch.stack([want[i] for i in win]).float()
@@ -284,12 +319,17 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
             rest[i] = sent[i]
         untouched = untouched and torch.equal(rest, sent)
         del rest
-    # tolerance: one bf16 rounding of q at its largest magnitude, one int8
-    # step for K/V codes, one bf16 rounding of the scales
+    # tolerance: one bf16 rounding of q (and of bf16 K/V) at its largest
+    # magnitude, one int8 step for K/V codes, one bf16 rounding of the scales
     tol_q = 2 ** -7 * q_want.float().abs().max().item()
-    tol_s = 2 ** -7 * max(peaks["k_scale"], peaks["v_scale"])
-    ok = (errs["q"] <= tol_q and max(errs["k_code"], errs["v_code"]) <= 1
-          and max(errs["k_scale"], errs["v_scale"]) <= tol_s and untouched)
+    if quantize:
+        tol_s = 2 ** -7 * max(peaks["k_scale"], peaks["v_scale"])
+        tol = dict(q=tol_q, codes=1, scales=tol_s)
+        ok = (errs["q"] <= tol_q and max(errs["k_code"], errs["v_code"]) <= 1
+              and max(errs["k_scale"], errs["v_scale"]) <= tol_s and untouched)
+    else:
+        tol = dict(q=tol_q, k=2 ** -7 * peaks["k"], v=2 ** -7 * peaks["v"])
+        ok = all(errs[k] <= t for k, t in tol.items()) and untouched
     ms = time_ms(call)
     call_ms = eager_ms(call)
     plain_ms = time_ms(plain)
@@ -297,14 +337,16 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
     # codes and scales go straight into the cache, nothing is read back
     n_in = (2 * S * T * (H + 2 * Hkv) * D + qk_norm * 2 * 2 * (H + Hkv) * D
             + 2 * 4 * S * T * D + 4 * S)
-    n_out = 2 * S * T * H * D + 2 * S * T * Hkv * D + 2 * 2 * S * T * Hkv
+    # q in bf16; K/V as int8 codes with bf16 scales, or in bf16
+    n_out = (2 * S * T * H * D + (2 * S * T * Hkv * D + 2 * 2 * S * T * Hkv if quantize
+                                  else 2 * 2 * S * T * Hkv * D))
     # per element: ~8 norm ops (q, k), 3 rope ops (q, k), ~4 quantize ops (k, v)
-    n_ops = S * T * D * ((8 * qk_norm + 3) * (H + Hkv) + 4 * 2 * Hkv)
+    n_ops = S * T * D * ((8 * qk_norm + 3) * (H + Hkv) + 4 * 2 * Hkv * quantize)
     b_ms, b_by = bound_ms(n_in + n_out, n_ops, F32_FLOPS)
-    row = dict(name="fused_epilogue", case=case,
+    row = dict(name="fused_epilogue", case=case, cache="int8" if quantize else "bf16",
                shape=dict(S=S, T=T, H=H, Hkv=Hkv, D=D, NL=NL, L=L, layer=layer,
                           cache_end=list(ends)), qk_norm=qk_norm,
-               max_abs_err=errs, tolerance=dict(q=tol_q, codes=1, scales=tol_s),
+               max_abs_err=errs, tolerance=tol,
                other_rows_unchanged=untouched, ok=ok, ms=ms, eager_ms=call_ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
                bytes=n_in + n_out)
@@ -330,7 +372,8 @@ def phase_epilogue(dev):
 
 
 def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: int,
-                     H: int = 32, Hkv: int = 32, NL: int = 32, layer: int = 17):
+                     H: int = 32, Hkv: int = 32, NL: int = 32, layer: int = 17,
+                     D: int = 128):
     """``decode_attention`` against its plain version on an ``NL``-layer
     cache of ``S`` rows and ``L`` rows each, under the mask ``valid``, for
     each per-row fill in ``fills`` and each cache kind; times the kernel,
@@ -343,7 +386,7 @@ def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: 
         _entry, decode_attention, decode_attention_plain, decode_masks)
     from sjd_tpu_torch.ops.fused_epilogue import quantize_rows
 
-    W, D = 16, 128
+    W = 16
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((S, W, H, D), generator=g, device=dev).to(torch.bfloat16)
     kq, ks = quantize_rows(torch.randn((S, NL, L, Hkv, D), generator=g, device=dev))
@@ -822,7 +865,7 @@ def _profiled_launches(run) -> tuple[dict, int]:
 
 
 def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int = 32,
-                profiled_steps: int = 2, make_engine=None, neg_ids=None):
+                profiled_steps: int = 2, make_engine=None, neg_ids=None, embeds=None):
     """The captured decode step against the eager one on the 7B: the same
     seed and calls, ``steps`` timed decode steps each after one untimed
     step (on the graph engine: replays of a graph captured beforehand).
@@ -834,8 +877,10 @@ def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int =
 
     ``make_engine(cuda_graph)`` builds the engine (the 7B's lumina_engine by
     default) and ``neg_ids`` is the negative prompt of a ``neg_prompt`` CFG
-    engine. A prefill over KERNEL_MAX_T rows takes the plain path: no TPU
-    kernel launches there."""
+    engine; ``embeds`` (generate's ``prompt_embeds``, ``neg_prompt_embeds``
+    and ``prompt_mask``) replaces ``prompt_ids`` for an embedding prompt. A
+    prefill over KERNEL_MAX_T rows takes the plain path: no TPU kernel
+    launches there."""
     import torch
 
     from sjd_tpu_torch.models.chameleon import lumina_engine
@@ -846,10 +891,14 @@ def phase_graph(dev, params, cfg, prompt_ids, label: str = "graph", steps: int =
         def make_engine(graph):
             return lumina_engine(target_size=TARGET_SIZE, cuda_graph=graph, model_cfg=cfg,
                                  device=dev)
-    ids = torch.tensor([prompt_ids], dtype=torch.int32, device=dev)
-    gkw = {} if neg_ids is None else {
-        "neg_prompt": torch.tensor([neg_ids], dtype=torch.int32, device=dev)}
-    long_prefill = max(len(prompt_ids), len(neg_ids or ())) > KERNEL_MAX_T
+    if embeds is not None:
+        ids, gkw, width = None, embeds, embeds["prompt_embeds"].shape[1]
+    else:
+        ids = torch.tensor([prompt_ids], dtype=torch.int32, device=dev)
+        gkw = {} if neg_ids is None else {
+            "neg_prompt": torch.tensor([neg_ids], dtype=torch.int32, device=dev)}
+        width = max(len(prompt_ids), len(neg_ids or ()))
+    long_prefill = width > KERNEL_MAX_T
     table = per_forward(params, cfg)
     runs, launched = {}, {}
     for graph in (False, True):
@@ -1603,16 +1652,17 @@ def phase_epilogue_emu3(dev):
 
 
 def phase_attention_emu3(dev):
-    """The attention at GQA group 4 over the 720px image's EMU3_L-row int8
-    buffer at fills 150, 4000 and 8190, the negative prompt's half
-    left-padded by 4 rows. Returns the kernel's row (fill 8190's numbers)."""
+    """The attention at GQA group 4 over the 720px image's EMU3_L-row buffer
+    at fills 150, 4000 and 8190, int8 (the phases below) and bf16 (the
+    loader's default), the negative prompt's half left-padded by 4 rows.
+    Returns the kernel's row (int8, fill 8190's numbers)."""
     import torch
 
     valid = torch.ones((2, EMU3_L), dtype=torch.bool, device=dev)
     valid[1, :4] = False
     att = _attention_cases(dev, "emu3", 2, EMU3_L, valid, [(f, f) for f in (150, 4000, 8190)],
-                           ("int8",), 32, **EMU3_HEADS)
-    main = next(r for r in att if r["fill"][0] == 8190)
+                           ("int8", "bf16"), 32, **EMU3_HEADS)
+    main = next(r for r in att if r["cache"] == "int8" and r["fill"][0] == 8190)
     return dict(name="decode_attention", case="emu3", route="cuda",
                 source="sjd_tpu_torch/csrc/decode_attention.cu",
                 replaces="sjd_tpu/ops/decode_attention.py:38",
@@ -1622,10 +1672,11 @@ def phase_attention_emu3(dev):
 
 
 def phase_emu3_load(dev):
-    """Emu3-Gen 8B through load_emu3(quantize=4) at full width and depth:
-    random weights drawn a layer at a time and quantized as drawn (packed
-    int4 projections, int8 head, no equilibration), the random Emu3VisionVQ
-    at its full widths, the duck tokenizer, init="repeat_horizon"."""
+    """Emu3-Gen 8B through load_emu3(quantize=4, kv_quant=True) at full width
+    and depth: random weights drawn a layer at a time and quantized as drawn
+    (packed int4 projections, int8 head, no equilibration), the int8 cache
+    (the loader's default is bf16), the random Emu3VisionVQ at its full
+    widths, the duck tokenizer, init="repeat_horizon"."""
     import torch
 
     from sjd_tpu_torch.loader import load_emu3
@@ -1633,7 +1684,8 @@ def phase_emu3_load(dev):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    model = load_emu3(quantize=4, tokenizer=Emu3Tok(), init="repeat_horizon", device=dev)
+    model = load_emu3(quantize=4, tokenizer=Emu3Tok(), init="repeat_horizon", kv_quant=True,
+                      device=dev)
     torch.cuda.synchronize()
     cfg = model.engine.model_cfg
     wq, head = model.params["layers"]["wq"], model.params["lm_head"]
@@ -1784,7 +1836,8 @@ def phase_emu3_understand(dev, model):
 
 
 def phase_anole(dev):
-    """Anole-7B through load_anole(quantize=4) on random weights: one
+    """Anole-7B through load_anole(quantize=4, kv_quant=True) on random
+    weights (the int8 cache; the loader's default is bf16): one
     image-only 512px image (1024 image tokens, then <eoi>) on the graph
     path with each kernel's launches per forward; a short interleaved run
     on the same weights; encode_image_fn on a 512px image against a direct
@@ -1801,7 +1854,7 @@ def phase_anole(dev):
     from sjd_tpu_torch.ops import launch_counts
 
     t0 = time.time()
-    model = load_anole(quantize=4, device=dev)
+    model = load_anole(quantize=4, kv_quant=True, device=dev)
     torch.cuda.synchronize()
     load_s = time.time() - t0
     eng, ex = model.engine, model.extras
@@ -1875,6 +1928,395 @@ def phase_anole(dev):
     return launches
 
 
+# LlamaGen GPT-XL: 20 heads of 64 (MHA), 36 layers, no qk-norm, bf16 cache
+# (the JAX default); a 512px image (32 x 32 latents) behind the 120 caption
+# rows: 1024 + 2 x 16 + 120 rows, rounded up to 512 with the window's
+LLAMAGEN_HEADS = dict(H=20, Hkv=20, NL=36, layer=35, D=64)
+LLAMAGEN_L = 1536
+LLAMAGEN_CAPTION = "a photo of a red fox in the snow at dawn"
+# the stub tokenizer's rows for that caption: 11 words and </s>, so 108 of
+# the 120 caption rows are left padding, masked in the cond half
+LLAMAGEN_PAD = 108
+
+
+class T5Tok:
+    """A tokenizer for the LlamaGen phases, called as HF's T5 tokenizer is:
+    one id per word (in [2, 32128), from a hash), then </s> (1),
+    right-padded with 0 to ``max_length``."""
+
+    def __call__(self, texts, max_length, padding, truncation, return_tensors):
+        import zlib
+
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for b, text in enumerate(texts):
+            toks = [2 + zlib.crc32(w.encode()) % 32126 for w in text.split()]
+            toks = toks[:max_length - 1] + [1]
+            ids[b, :len(toks)] = toks
+            mask[b, :len(toks)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def phase_epilogue_llamagen(dev):
+    """The epilogue at GPT-XL's shapes (heads of 64, no qk-norm) into the
+    512px image's LLAMAGEN_L-row cache's last layer, on the 2-D table's
+    rows at each sample's fill (fill 100 lies in the caption rows, which do
+    not rotate): bf16 at fills (1140, 100) and (150, 600), int8 at (1140,
+    100). Returns the kernel's row (bf16, (1140, 100))."""
+    import torch
+
+    from sjd_tpu_torch.models.llamagen import llamagen_config
+    from sjd_tpu_torch.models.transformer import make_rope_table
+
+    table = make_rope_table(llamagen_config("GPT-XL", block_size=1024, cls_token_num=120),
+                            LLAMAGEN_L, device=dev)
+    rows = []
+    for kind, ends in (("bf16", (1140, 100)), ("bf16", (150, 600)), ("int8", (1140, 100))):
+        pos = torch.tensor(ends, device=dev)[:, None] + torch.arange(16, device=dev)
+        rope = (table[pos, 0].contiguous(), table[pos, 1].contiguous())
+        rows.append(_epilogue_case(dev, "llamagen", 2, LLAMAGEN_L, ends, 40 + len(rows),
+                                   qk_norm=False, quantize=kind == "int8", rope=rope,
+                                   **LLAMAGEN_HEADS))
+    main = rows[0]
+    return dict(name="fused_epilogue", case="llamagen", route="cuda",
+                source="sjd_tpu_torch/csrc/fused_epilogue.cu",
+                replaces="sjd_tpu/ops/fused_epilogue.py:35",
+                max_abs_err=max(max(r["max_abs_err"].values()) for r in rows), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None)
+
+
+def phase_attention_llamagen(dev):
+    """The attention at GPT-XL's shapes (MHA, 20 heads of 64) over the 512px
+    image's LLAMAGEN_L-row buffer, the cond half's caption left-padded by
+    LLAMAGEN_PAD rows, at fills 150, 600 and 1140 (the last window of the
+    image), bf16 (the main path's cache) and int8. Returns the kernel's row
+    (bf16, fill 1140)."""
+    import torch
+
+    valid = torch.ones((2, LLAMAGEN_L), dtype=torch.bool, device=dev)
+    valid[0, :LLAMAGEN_PAD] = False
+    att = _attention_cases(dev, "llamagen", 2, LLAMAGEN_L, valid,
+                           [(f, f) for f in (150, 600, 1140)], ("bf16", "int8"), 41,
+                           **LLAMAGEN_HEADS)
+    main = next(r for r in att if r["cache"] == "bf16" and r["fill"][0] == 1140)
+    return dict(name="decode_attention", case="llamagen", route="cuda",
+                source="sjd_tpu_torch/csrc/decode_attention.cu",
+                replaces="sjd_tpu/ops/decode_attention.py:38",
+                max_abs_err=max(r["max_abs_err"] for r in att), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"])
+
+
+def phase_llamagen_load(dev):
+    """LlamaGen GPT-XL t2i through load_llamagen at full width and depth on
+    random weights: the GPT (36 layers, d 1280, 20 heads of 64, ff 3584,
+    vocab 16384, 2-D RoPE over 120 caption rows and a 32 x 32 grid) in bf16
+    with a bf16 cache, its caption embedder, the VQ-16 decoder, and the T5
+    encoder at flan-t5-xl's widths (24 layers, d 2048, 32 heads of 64, ff
+    5120, vocab 32128, f32) behind the stub tokenizer. Then the caption's
+    T5 encode, timed after one untimed run."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.loader import load_llamagen
+    from sjd_tpu_torch.models.t5 import T5EncoderConfig
+    from sjd_tpu_torch.models.transformer import weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = load_llamagen(name="GPT-XL", model_type="t2i", latent_size=32,
+                          t5_tokenizer=T5Tok(), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    cfg, t5 = model.engine.model_cfg, model.extras["t5"]
+    t5.get_text_embeddings([LLAMAGEN_CAPTION])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    feats, mask = t5.get_text_embeddings([LLAMAGEN_CAPTION])
+    torch.cuda.synchronize()
+    t5_s = time.time() - t0
+    emit("llamagen_load", seconds=load_s, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         ff=cfg.intermediate_size, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.head_dim, vocab=cfg.vocab_size, rope_style=cfg.rope_style,
+         rope_2d=[cfg.rope_2d_cls_len, cfg.rope_2d_grid_side], kv_quant=cfg.kv_quant,
+         weight_bytes=weight_bytes(model.params), t5_bytes=weight_bytes(t5.params),
+         vq_bytes=weight_bytes(model.extras["vq_params"]),
+         cond_bytes=weight_bytes({k: v for k, v in model.extras["cond"].items()
+                                  if k != "kind"}),
+         t5_encode_s=t5_s, caption_rows=int(mask.sum()), t5_feature_shape=list(feats.shape),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         smoke_reasons=model.extras["smoke_reasons"])
+    check((cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size, cfg.rope_style,
+           cfg.rope_2d_cls_len, cfg.rope_2d_grid_side, cfg.kv_quant)
+          == (36, 1280, 3584, 20, 20, 64, 16384, "2d", 120, 32, False),
+          f"not the GPT-XL 512px t2i config: {cfg}")
+    check(t5.config == T5EncoderConfig(), f"not flan-t5-xl's widths: {t5.config}")
+    check(feats.shape == (1, 120, 2048) and bool(np.isfinite(feats).all())
+          and int(mask.sum()) == 120 - LLAMAGEN_PAD, f"T5 features {feats.shape}, mask "
+          f"{int(mask.sum())} rows")
+    model.extras["t5_encode_s"] = t5_s
+    return model
+
+
+def phase_llamagen_forward(dev, model):
+    """The kernel forward against the plain forward on GPT-XL's bf16
+    weights at full depth (both TPU kernels at heads of 64, the 2-D table),
+    within phase_forward's 5%."""
+    cfg = model.engine.model_cfg
+    logits, launched = _forward_pair(dev, cfg, model.params)
+    err = (logits[0] - logits[1]).abs().max().item()
+    scale = logits[1].abs().max().item()
+    ok = math.isfinite(err) and err <= 0.05 * scale
+    emit("llamagen_forward", layers=cfg.num_layers, head_dim=cfg.head_dim, max_abs_err=err,
+         max_abs_logit=scale, tolerance=0.05 * scale, ok=ok, launches=launched)
+    check(ok, "GPT-XL kernel forward disagrees with the plain forward")
+    check(launched["auto"]["decode_attention"] == 2 * cfg.num_layers
+          and launched["plain"]["decode_attention"] == 0, f"GPT-XL launches {launched}")
+
+
+def phase_llamagen_generate(dev, model):
+    """One 512px image through load_llamagen's sample_fn on the graph path:
+    the caption through T5 and the caption embedder, CFG 7.5 against the
+    uncond caption, window 16, top-k 1000, then the VQ-16 decode. Holds the
+    image, its 1024 image tokens and each TPU kernel's launches: 36 per
+    decode forward (the 120-row prefill takes the plain path). ms per
+    forward leaves out the T5 encode and the VQ decode, timed apart."""
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.models.llamagen import VOCAB_SIZE
+    from sjd_tpu_torch.models.transformer import KERNEL_MAX_T, weight_bytes
+    from sjd_tpu_torch.ops import launch_counts
+
+    eng, ex = model.engine, model.extras
+    cfg = eng.model_cfg
+    table = per_forward(model.params, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    t0 = time.time()
+    img = model.sample_fn(LLAMAGEN_CAPTION, 0)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = eng.stats.executed(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = ex["last_result"]
+    n, nfe = int(res.length[0]), int(res.nfe)
+    toks = res.tokens[0, :n].tolist()
+    gen = toks[ex["prompt_width"]:]
+    t0 = time.time()
+    again = ex["decode_image_fn"](toks)
+    torch.cuda.synchronize()
+    vq_s = time.time() - t0
+    long_prefill = ex["prompt_width"] > KERNEL_MAX_T
+    expected = {k: v * (nfe - (1 if long_prefill and not k.startswith("quant") else 0))
+                for k, v in table.items()}
+    kv_rows = eng._state.kv.k.shape[2]
+    emit("llamagen_t2i", size=512, caption_rows=ex["prompt_width"],
+         tokens_generated=int(res.gen_count[0]), nfe=nfe,
+         tokens_per_forward=int(res.gen_count[0]) / nfe,
+         accept_hist=res.accept_hist.tolist(), wall_s=wall_s, vq_decode_s=vq_s,
+         t5_encode_s=ex["t5_encode_s"],
+         ms_per_forward=1e3 * (wall_s - vq_s - ex["t5_encode_s"]) / nfe, peak_mem_gb=peak,
+         weight_bytes=weight_bytes(model.params), kv_buffer_rows=kv_rows,
+         kv_dtype=str(eng._state.kv.k.dtype), image_shape=list(img.shape),
+         image_dtype=str(img.dtype), launches=launches, launches_expected=expected,
+         captures=eng.stats.captures, graph_replays=eng.stats.replays,
+         eager_steps=eng.stats.eager_steps, capture_s=eng.stats.capture_s)
+    check(tuple(img.shape) == (512, 512, 3) and str(img.dtype) == "uint8",
+          f"image is {img.shape} {img.dtype}")
+    check((img == again).all(), "a second VQ decode of the same tokens differs")
+    check(len(gen) == 1024 and int(res.gen_count[0]) == 1024
+          and all(0 <= t < VOCAB_SIZE for t in gen), f"{len(gen)} image tokens")
+    check(kv_rows == LLAMAGEN_L and eng._state.kv.k_scale is None,
+          f"the KV buffer has {kv_rows} rows (the kernel phases {LLAMAGEN_L}), "
+          f"{eng._state.kv.k.dtype}")
+    check(eng.stats.captures >= 1 and eng.stats.replays > 0, f"graph path idle: {eng.stats}")
+    for name, k in launches.items():
+        check(k > 0 or table[name] == 0, f"{name} was never launched on the LlamaGen path")
+        check(k == expected[name], f"{name}: {k} launches for {nfe} forwards, not "
+                                   f"{expected[name]}")
+    return launches
+
+
+def phase_llamagen_bench(dev, model):
+    """bench.py:bench_llamagen's row on the card: GPT-XL t2i at 256px (256
+    tokens) from 120 rows of seeded stand-in T5 features, CFG 7.5, window
+    16, top-k 1000, bf16, SJD and then AR (window 1) on the same weights;
+    each a warm-up run (seed 0: the graph's capture), then a timed one
+    (seed 1)."""
+    import torch
+
+    from sjd_tpu_torch.models.llamagen import embed_caption, embed_uncond_caption
+    from sjd_tpu_torch.models.llamagen import llamagen_engine
+
+    cond = model.extras["cond"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    feats = torch.randn((1, 120, 2048), generator=g, device=dev)
+    kw = dict(prompt_embeds=embed_caption(cond, feats, torch.bfloat16),
+              neg_prompt_embeds=embed_uncond_caption(cond, 1, torch.bfloat16))
+    out = {}
+    for label, window in (("sjd", 16), ("ar", 1)):
+        eng = llamagen_engine(name="GPT-XL", latent_size=16, cls_token_num=120, window=window,
+                              device=dev)
+        eng.generate(model.params, 0, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = eng.generate(model.params, 1, **kw)
+        torch.cuda.synchronize()
+        latency = time.time() - t0
+        out[label] = dict(latency_s=latency, nfe=int(res.nfe),
+                          tokens=int(res.gen_count[0]), ms_per_forward=1e3 * latency / res.nfe,
+                          accept_hist=res.accept_hist.tolist(), captures=eng.stats.captures)
+        del eng
+        torch.cuda.empty_cache()
+    sjd, ar = out["sjd"], out["ar"]
+    emit("llamagen_bench", name="GPT-XL", size=256, mode="t2i", tokens=sjd["tokens"],
+         latency_s=sjd["latency_s"], nfe=sjd["nfe"], ms_per_forward=sjd["ms_per_forward"],
+         accept_hist=sjd["accept_hist"], ar_latency_s=ar["latency_s"], ar_nfe=ar["nfe"],
+         ar_ms_per_forward=ar["ms_per_forward"],
+         step_reduction_vs_ar=ar["nfe"] / sjd["nfe"], latency_vs_ar=ar["latency_s"]
+         / sjd["latency_s"], captures=[sjd["captures"], ar["captures"]])
+    check(sjd["tokens"] == ar["tokens"] == 256, f"tokens {sjd['tokens']}, {ar['tokens']}")
+    check(ar["nfe"] == ar["tokens"] and sjd["nfe"] < ar["nfe"],
+          f"NFE: SJD {sjd['nfe']}, AR {ar['nfe']}")
+
+
+def phase_llamagen_stream(dev, model, chunk_steps: int = 64):
+    """StreamingBatcher in embedding mode: 3 captions (of 5, 9 and 2 words)
+    through the T5 encoder and the caption embedder, submitted as host rows
+    to 2 slots at 256px on W4A16 weights (quantized on the card from the
+    bf16 GPT: its rows do not depend on the batch width), chunks of 64, one
+    refill. Each request's tokens must equal the same request run alone
+    with the same seed. Launches: each TPU kernel per decode forward, the
+    quantized products per forward (the 120-row prefills and refills take
+    the plain path otherwise). The batch is captured once: the refill
+    changes its state in place."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.serving import StreamingBatcher, seed_generators
+    from sjd_tpu_torch.models.llamagen import llamagen_engine
+    from sjd_tpu_torch.models.transformer import quantize_weights
+
+    params = quantize_weights(model.params, bits=4, head_bits=8, equilibrate=False)
+    eng = llamagen_engine(name="GPT-XL", latent_size=16, cls_token_num=120, device=dev)
+    captions = ["a lighthouse at dusk in winter", "three green apples on a wooden table "
+                "beside a window", "old map"]
+    seeds = [601, 602, 603]
+    reqs = []
+    for c in captions:
+        pe, ne, mask = model.extras["embed_prompt_fn"](c)
+        reqs.append((pe[0].cpu(), ne[0].cpu(), mask[0].cpu()))
+    torch.cuda.synchronize()
+    table = per_forward(params, eng.model_cfg)
+    _zero_launch_counts()
+    t0 = time.time()
+    sb = StreamingBatcher(eng, params, batch=2, chunk_steps=chunk_steps, prompt_width=120,
+                          embed_dim=eng.model_cfg.hidden_size)
+    handles = [sb.submit(prompt_embeds=pe, neg_prompt_embeds=ne, prompt_mask=m, seed=sd)
+               for (pe, ne, m), sd in zip(reqs, seeds)]
+    done = [h.wait(timeout=600) for h in handles]
+    stats = sb.stats()
+    sb.close()
+    serve_s = time.time() - t0
+    launches = _executed(eng)
+    stream_captures = eng.stats.captures
+    decode = eng.stats.eager_steps + eng.stats.replays
+    prefills = stats["batches"] + stats["refills"]
+    expected = {k: n * (decode + (prefills if k.startswith("quant") else 0))
+                for k, n in table.items()}
+    same = []
+    for (pe, ne, m), sd, d in zip(reqs, seeds, done):
+        alone = eng.generate(params, seed_generators([sd], dev), prompt_embeds=pe[None].to(dev),
+                             neg_prompt_embeds=ne[None].to(dev), prompt_mask=m[None].to(dev))
+        same.append(bool(np.array_equal(alone.tokens[0, :int(alone.length[0])].cpu().numpy(),
+                                        d.tokens)))
+    emit("llamagen_stream", size=256, slots=2, chunk_steps=chunk_steps, requests=3,
+         caption_rows=[int(m.sum()) for _, _, m in reqs], seeds=seeds, stats=stats,
+         gen_counts=[d.gen_count for d in done], equal_to_solo=same, serve_s=serve_s,
+         decode_forwards=decode, prefills=prefills, launches=launches,
+         launches_expected=expected, stream_captures=stream_captures,
+         captures=eng.stats.captures, graph_replays=eng.stats.replays)
+    check(stats["completed"] == 3 and all(d.gen_count == 256 for d in done),
+          f"not every request completed: {stats}")
+    # the refill re-arms a slot under the captured step: no second capture
+    check(stats["refills"] >= 1 and stream_captures == 1,
+          f"{stream_captures} captures for {stats['refills']} refills")
+    check(all(same), f"requests differ from their solo runs: {same}")
+    for name, n in launches.items():
+        check(n == expected[name], f"{name}: {n} launches in llamagen_stream, not "
+                                   f"{expected[name]}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def phase_llamagen_c2i(dev):
+    """LlamaGen GPT-XL c2i at 256px through load_llamagen(quantize=4): W4A16
+    projections (K1 at d 1280: 1280 x 1280, 3584 x 1280, 1280 x 3584) and
+    the int8 head (16384 x 1280). The kernel forward within 5% of the
+    plain one, then one image of class 207 with every kernel's launches per
+    forward (the one-row prefill takes the kernels too)."""
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.loader import load_llamagen
+    from sjd_tpu_torch.models.llamagen import VOCAB_SIZE
+    from sjd_tpu_torch.models.transformer import weight_bytes
+    from sjd_tpu_torch.ops import launch_counts
+
+    t0 = time.time()
+    model = load_llamagen(name="GPT-XL", model_type="c2i", latent_size=16, quantize=4,
+                          device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    eng, ex = model.engine, model.extras
+    cfg = eng.model_cfg
+    wq, head = model.params["layers"]["wq"], model.params["lm_head"]
+    check(set(wq) == {"q4p", "s"} and set(head) == {"q", "s"}, "not W4A16 with an int8 head")
+    logits, launched = _forward_pair(dev, cfg, model.params)
+    err = (logits[0] - logits[1]).abs().max().item()
+    scale = logits[1].abs().max().item()
+    fwd_ok = math.isfinite(err) and err <= 0.05 * scale
+    table = per_forward(model.params, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    t0 = time.time()
+    img = model.sample_fn(207, 0)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = eng.stats.executed(launch_counts())
+    res = ex["last_result"]
+    nfe = int(res.nfe)
+    gen = res.tokens[0, 1:int(res.length[0])].tolist()
+    emit("llamagen_c2i", size=256, label=207, load_s=load_s,
+         weight_bytes=weight_bytes(model.params), forward_max_abs_err=err,
+         forward_max_abs_logit=scale, forward_ok=fwd_ok, forward_launches=launched,
+         tokens_generated=int(res.gen_count[0]), nfe=nfe,
+         accept_hist=res.accept_hist.tolist(), wall_s=wall_s, ms_per_forward=1e3 * wall_s / nfe,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, image_shape=list(img.shape),
+         launches=launches, launches_expected={k: v * nfe for k, v in table.items()},
+         captures=eng.stats.captures, graph_replays=eng.stats.replays)
+    check(fwd_ok, "GPT-XL W4A16 kernel forward disagrees with the plain forward")
+    check(launched["auto"]["quant_linear_a16"] == 2 * (7 * cfg.num_layers + 1),
+          f"GPT-XL W4A16 forward launches {launched}")
+    check(tuple(img.shape) == (256, 256, 3) and str(img.dtype) == "uint8",
+          f"image is {img.shape} {img.dtype}")
+    check(len(gen) == 256 and all(0 <= t < VOCAB_SIZE for t in gen), f"{len(gen)} tokens")
+    for name, k in launches.items():
+        check(k == table[name] * nfe and (k > 0 or table[name] == 0),
+              f"{name}: {k} launches in llamagen_c2i for {nfe} forwards")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1900,6 +2342,7 @@ def main() -> int:
     kernels = [phase_epilogue(dev), phase_attention(dev)]
     kernels += phase_quant_kernels(dev)
     kernels += [phase_epilogue_emu3(dev), phase_attention_emu3(dev)]
+    kernels += [phase_epilogue_llamagen(dev), phase_attention_llamagen(dev)]
     phase_forward(dev)
     phase_quant_forward(dev)
     model = phase_load(dev)
@@ -1961,9 +2404,29 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_anole(dev)
+    # LlamaGen GPT-XL: t2i at 512px with the T5 encoder, the 256px bench
+    # row, the embedding-mode stream, then c2i on W4A16 weights
+    from sjd_tpu_torch.models.llamagen import llamagen_engine
+
+    lmodel = phase_llamagen_load(dev)
+    lcfg = lmodel.engine.model_cfg
+    phase_llamagen_forward(dev, lmodel)
+    pe, ne, mask = lmodel.extras["embed_prompt_fn"](LLAMAGEN_CAPTION)
+    phase_graph(dev, lmodel.params, lcfg, None, label="llamagen_graph",
+                embeds=dict(prompt_embeds=pe, neg_prompt_embeds=ne, prompt_mask=mask),
+                make_engine=lambda graph: llamagen_engine(
+                    name="GPT-XL", latent_size=32, cls_token_num=120, cuda_graph=graph,
+                    model_cfg=lcfg, device=dev))
+    l_launches = phase_llamagen_generate(dev, lmodel)
+    phase_llamagen_bench(dev, lmodel)
+    phase_llamagen_stream(dev, lmodel)
+    del lmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_llamagen_c2i(dev)
     for k in kernels:
-        if k.get("case") == "emu3":
-            k["launches"] = e_launches[k["name"]]
+        if k.get("case") in ("emu3", "llamagen"):
+            k["launches"] = (e_launches if k["case"] == "emu3" else l_launches)[k["name"]]
             continue
         k["launches"] = {"quant_linear_a16": a16, "quant_linear_a8": a8}.get(
             k["name"], launches)[k["name"]]

@@ -9,6 +9,8 @@ and its config dataclasses; nothing here imports JAX or ``sjd_tpu``.
     because ``torch.from_numpy`` refuses them; the values are unchanged.
   * VQ convolution weights are HWIO in JAX and become OIHW; the Emu3 VQ's
     3-D ones are DHWIO and become OIDHW.
+  * LlamaGen's conditioning embedders and the T5 encoder keep their trees
+    (``fc1``/``fc2`` are [in, out] in both, T5's projections [out, in]).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .models.t5 import T5EncoderConfig
 from .models.transformer import DecoderConfig
 from .models.vq.emu3_vq import Emu3VQConfig
 from .models.vq.taming import VQConfig
@@ -50,13 +53,45 @@ def _tree(x: Any, leaf):
 
 
 def decoder_config_from_jax(jcfg, **overrides) -> DecoderConfig:
-    """The port's DecoderConfig with the fields of a sjd_tpu DecoderConfig."""
+    """The port's DecoderConfig with the fields of a sjd_tpu DecoderConfig.
+    A field the port lacks must hold the JAX default, or this raises: its
+    value would be dropped, and the port would compute something else.
+    ``attn_impl`` names TPU paths and is not carried over."""
     names = {f.name for f in dataclasses.fields(DecoderConfig)}
+    dropped = [f.name for f in dataclasses.fields(jcfg)
+               if f.name not in names and getattr(jcfg, f.name) != f.default]
+    if dropped:
+        raise ValueError(f"the port's DecoderConfig has no field for {dropped}, whose values "
+                         "differ from the JAX defaults")
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
           if f.name in names and f.name not in ("dtype", "attn_impl")}
     kw["dtype"] = torch_dtype(jcfg.dtype)
     kw.update(overrides)
     return DecoderConfig(**kw)
+
+
+def cond_params_from_jax(np_tree: dict, device=None) -> dict:
+    """sjd_tpu LlamaGen conditioning params (``init_cond_params``, numpy
+    leaves) -> the port's: the ``kind`` string as it is, f32 tensors."""
+    dev = resolve_device(device)
+    return {k: v if k == "kind" else tensor_from_numpy(v, dev) for k, v in np_tree.items()}
+
+
+def t5_config_from_jax(jcfg) -> T5EncoderConfig:
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name != "dtype"}
+    return T5EncoderConfig(dtype=torch_dtype(jcfg.dtype), **kw)
+
+
+def t5_params_from_jax(np_tree: dict, cfg: T5EncoderConfig, device=None) -> dict:
+    """sjd_tpu T5 encoder params (``init_t5_params`` or ``port_t5_encoder``,
+    numpy leaves) -> the port's: the same tree and [out, in] layout."""
+    dev = resolve_device(device)
+    params = {k: tensor_from_numpy(v, dev) for k, v in np_tree.items()}
+    n, d = cfg.num_layers, cfg.d_model
+    if tuple(params["embed"].shape) != (cfg.vocab_size, d) or params["wq"].shape[0] != n:
+        raise ValueError(f"the T5 tree (embed {tuple(params['embed'].shape)}, "
+                         f"{params['wq'].shape[0]} layers) does not match {cfg}")
+    return params
 
 
 def _vq_config(cls, jcfg):

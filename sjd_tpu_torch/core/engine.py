@@ -38,7 +38,11 @@ into the graph's input buffers), so a slot's trajectory depends on its own
 generator alone, on either path, and ``refill`` can give a slot a new
 generator without a recapture.
 
-The 1-token AR fast path and prompt embeddings are not ported yet.
+A prompt enters as token ids or, for LlamaGen's conditioning prefix, as
+embeddings (``prompt_embeds``, with zero placeholder ids of the same width
+in the token buffer); only the prefill reads them, so the decode step and
+its graph are the same either way. The 1-token AR fast path is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -88,7 +92,8 @@ class ModelFns(NamedTuple):
     """What the engine needs from a backbone.
 
     forward(params, ids [S,T], positions [S,T], kv, cache_end [S],
-            valid [S, L_buf], logits_tail) -> (logits [S, tail, V] f32, kv)
+            valid [S, L_buf], logits_tail[, inputs_embeds [S,T,d]])
+        -> (logits [S, tail, V] f32, kv)
     init_cache(batch, buf_len) -> KV cache on the model's device
     """
 
@@ -232,28 +237,37 @@ class SJDEngine:
         self,
         params,
         rng: Union[int, Sequence[torch.Generator]],
-        prompt: Tensor,  # [B, P] int (left-padded)
+        prompt: Optional[Tensor] = None,  # [B, P] int (left-padded)
         prompt_mask: Optional[Tensor] = None,  # [B, P] bool
         neg_prompt: Optional[Tensor] = None,  # [B, Pn] for cfg_mode=neg_prompt
         neg_mask: Optional[Tensor] = None,
         gstate: Optional[grammar_lib.GrammarState] = None,
+        prompt_embeds: Optional[Tensor] = None,  # [B, P, d] conditioning rows
+        neg_prompt_embeds: Optional[Tensor] = None,  # [B, P, d]
         max_steps: Optional[int] = None,
         return_state: bool = False,
     ):
         """``rng`` is a seed (spawned into per-slot generators) or a list of
         B generators on the engine's device, one per slot.
 
+        The prompt is token ids or, LlamaGen's conditioning prefix,
+        ``prompt_embeds`` (``prompt`` then None or ids of the same width,
+        placeholders in the token buffer); under ``cfg_mode="neg_prompt"``
+        CFG the uncond half is ``neg_prompt_embeds`` of the same shape, all
+        rows attended. ``prompt_mask`` masks the cond half's rows either way.
+
         ``max_steps`` bounds the forwards of this call (the prefill counts
         one); with ``return_state`` and :meth:`resume` it chunks one
         generation into several calls with the same result. The returned
         state is the engine's own (module docstring)."""
-        prompt, prompt_mask, neg_prompt, neg_mask, gstate = self._normalize_prompt_inputs(
-            prompt, prompt_mask, neg_prompt, neg_mask, gstate)
+        prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds = \
+            self._normalize_prompt_inputs(prompt, prompt_mask, neg_prompt, neg_mask, gstate,
+                                          prompt_embeds, neg_prompt_embeds)
         gens = self._normalize_rng(rng, prompt.shape[0])
         cap = self.config.resolved_nfe_cap() if max_steps is None else max_steps
         with torch.no_grad():
             state = self._prefill_state(params, gens, prompt, prompt_mask,
-                                        neg_prompt, neg_mask, gstate)
+                                        neg_prompt, neg_mask, gstate, embeds)
             self._run(params, state, cap)
         result = self._result_from_state(state)
         return (result, state) if return_state else result
@@ -275,13 +289,15 @@ class SJDEngine:
         self,
         params,
         state: EngineState,
-        prompt: Tensor,  # [B, P]: P must match the original prompt rows
+        prompt: Optional[Tensor],  # [B, P]: P must match the original prompt rows
         refill_mask,  # [B] bool (host): slots to re-arm with fresh prompts
         prompt_mask: Optional[Tensor] = None,
         neg_prompt: Optional[Tensor] = None,
         neg_mask: Optional[Tensor] = None,
         gstate: Optional[grammar_lib.GrammarState] = None,
         rng: Union[None, int, Sequence[torch.Generator]] = None,
+        prompt_embeds: Optional[Tensor] = None,
+        neg_prompt_embeds: Optional[Tensor] = None,
     ) -> EngineState:
         """Continuous batching: re-arm the slots of ``refill_mask`` with
         fresh prompts between :meth:`resume` chunks, with one prefill
@@ -292,15 +308,17 @@ class SJDEngine:
         [0, R) are merged into the state's cache in place; tokens, lengths,
         carried drafts, grammar state and the rest are selected per slot,
         also in place, so a captured graph of the step replays on as
-        before. ``prompt`` is padded to the original prompt's width; rows
+        before. ``prompt`` (or ``prompt_embeds``, with ``prompt`` None, as
+        in :meth:`generate`) is padded to the original prompt's width; rows
         outside ``refill_mask`` are ignored. ``rng`` gives the refilled
         slots their generators (a seed or B generators; other rows are
         ignored). With None each refilled slot gets one derived from its old
         generator's initial seed and the NFE, without advancing any
         generator."""
         self._check_own(state)
-        prompt, prompt_mask, neg_prompt, neg_mask, gstate = self._normalize_prompt_inputs(
-            prompt, prompt_mask, neg_prompt, neg_mask, gstate)
+        prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds = \
+            self._normalize_prompt_inputs(prompt, prompt_mask, neg_prompt, neg_mask, gstate,
+                                          prompt_embeds, neg_prompt_embeds)
         B = prompt.shape[0]
         dev = self.device
         mask = np.asarray(refill_mask.cpu() if isinstance(refill_mask, Tensor)
@@ -319,7 +337,7 @@ class SJDEngine:
         small = min(((P_rows + self.config.window + 512) // 512) * 512, state.valid.shape[1])
         with torch.no_grad():
             fresh = self._prefill_state(params, fill_gens, prompt, prompt_mask, neg_prompt,
-                                        neg_mask, gstate, kv_buf_rows=small)
+                                        neg_mask, gstate, embeds, kv_buf_rows=small)
             if fresh.tokens.shape != state.tokens.shape:
                 raise ValueError(
                     f"refill prompt rows must reproduce the engine's buffer: got "
@@ -364,10 +382,32 @@ class SJDEngine:
             return torch.zeros_like(gstate.in_image)
         return ~gstate.in_image
 
-    def _normalize_prompt_inputs(self, prompt, prompt_mask, neg_prompt, neg_mask, gstate):
+    def _normalize_prompt_inputs(self, prompt, prompt_mask, neg_prompt, neg_mask, gstate,
+                                 prompt_embeds=None, neg_prompt_embeds=None):
         """Shared by generate() and refill(): tensors on the engine's
-        device, default masks and grammar state, the negative prompt."""
+        device, default masks and grammar state, the negative prompt, and
+        for an embedding prompt its zero placeholder ids and the
+        ``(prompt_embeds, neg_prompt_embeds)`` pair (else None)."""
         dev = self.device
+        embeds = None
+        if prompt_embeds is not None:
+            pe = torch.as_tensor(prompt_embeds, device=dev)
+            B, P = pe.shape[:2]
+            prompt = torch.zeros((B, P), dtype=torch.int32, device=dev) if prompt is None \
+                else torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+            if tuple(prompt.shape) != (B, P):
+                raise ValueError(f"prompt {tuple(prompt.shape)} must match prompt_embeds' "
+                                 f"{(B, P)}")
+            if self.sampling.do_cfg and self.config.cfg_mode == "neg_prompt":
+                if neg_prompt_embeds is None or neg_prompt_embeds.shape != pe.shape:
+                    raise ValueError("embedding prompts need neg_prompt_embeds of the same "
+                                     "shape")
+                # the uncond half: placeholder ids, every row attended
+                neg_prompt = torch.zeros((B, P), dtype=torch.int32, device=dev)
+                neg_mask = torch.ones((B, P), dtype=torch.bool, device=dev)
+            ne = (torch.zeros_like(pe) if neg_prompt_embeds is None
+                  else torch.as_tensor(neg_prompt_embeds, device=dev))
+            embeds = (pe, ne)
         prompt = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
         if prompt_mask is None:
             prompt_mask = torch.ones(prompt.shape, dtype=torch.bool, device=dev)
@@ -382,7 +422,7 @@ class SJDEngine:
             neg_mask = (torch.ones(neg_prompt.shape, dtype=torch.bool, device=dev)
                         if neg_mask is None else
                         torch.as_tensor(neg_mask, dtype=torch.bool, device=dev))
-        return prompt, prompt_mask, neg_prompt, neg_mask, gstate
+        return prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds
 
     def _normalize_rng(self, rng, batch: int) -> List[torch.Generator]:
         if isinstance(rng, (int, np.integer)):
@@ -401,11 +441,13 @@ class SJDEngine:
             accept_hist=state.accept_hist.clone())
 
     def _prefill_state(self, params, gens, prompt, prompt_mask, neg_prompt,
-                       neg_mask, gstate0, kv_buf_rows: Optional[int] = None) -> EngineState:
+                       neg_mask, gstate0, embeds=None,
+                       kv_buf_rows: Optional[int] = None) -> EngineState:
         """The post-prefill state, written into the engine's state if it has
-        this shape (else allocated anew). ``kv_buf_rows`` sets the KV
-        buffer's rows instead: refill's small cache, a fresh state that the
-        engine does not keep."""
+        this shape (else allocated anew). ``embeds`` is the (cond, uncond)
+        embedding prompt, which the prefill reads in place of the ids' rows.
+        ``kv_buf_rows`` sets the KV buffer's rows instead: refill's small
+        cache, a fresh state that the engine does not keep."""
         cfg = self.config
         dev = self.device
         B, P = prompt.shape
@@ -459,9 +501,13 @@ class SJDEngine:
         valid[:, :P] = mask_s
         n_pad = (~mask_s).sum(1).to(torch.int32)
         positions = torch.clamp_min(torch.cumsum(mask_s.to(torch.int32), dim=1) - 1, 0)
+        fwd_kw = {}
+        if embeds is not None:
+            fwd_kw["inputs_embeds"] = (torch.cat(embeds, dim=0) if self._S_factor == 2
+                                       else embeds[0])
         logits, kv = self.model.forward(
             params, prompt_s, positions.to(torch.int32), kv,
-            torch.zeros((S,), dtype=torch.int32, device=dev), valid, logits_tail=1)
+            torch.zeros((S,), dtype=torch.int32, device=dev), valid, logits_tail=1, **fwd_kw)
         prompt_len = prompt_mask.to(torch.int32).sum(1)
         probs0 = processors_lib.process_window_logits(
             logits, self.spec, gstate0, self.sampling,

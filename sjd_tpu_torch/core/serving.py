@@ -13,9 +13,10 @@ the same graph replays on.
 ``StreamingBatcher`` does the same online: ``submit`` from any thread, a
 drive thread admits requests at chunk boundaries and resolves each
 request's ``PendingResult``. Only the drive thread touches the device.
+Requests are token ids or, with ``embed_dim`` (LlamaGen), embedding rows.
 
-Prompt embeddings (``embed_dim``) and data-parallel slots
-(``row_sharding``) are not ported yet: ``StreamingBatcher`` refuses them.
+Data-parallel slots (``row_sharding``) are not ported yet:
+``StreamingBatcher`` refuses them.
 """
 
 from __future__ import annotations
@@ -165,15 +166,6 @@ class ContinuousBatcher:
         return done
 
 
-def _not_ported(embed_dim: int, row_sharding: Any) -> None:
-    if embed_dim:
-        raise NotImplementedError("prompt embeddings (embed_dim > 0) are not ported: the "
-                                  "port's engine takes token prompts only")
-    if row_sharding is not None:
-        raise NotImplementedError("row_sharding (data-parallel slots) is not ported: the "
-                                  "port serves one device")
-
-
 class PendingResult:
     """Handle returned by :meth:`StreamingBatcher.submit`; ``wait`` blocks
     until the generation completes and returns its CompletedGeneration."""
@@ -220,30 +212,39 @@ class StreamingBatcher:
     ``prompt_width`` is the fixed token bucket: shorter prompts are
     left-padded (mask False), longer ones refused; with ``neg_width`` (the
     engine's ``cfg_mode="neg_prompt"``) each request brings a negative
-    prompt of at most that many ids. ``submit`` keeps its payload on the
-    host (lists): a CUDA
-    call from a client thread while the drive thread captures the decode
-    step would break the capture. The drive thread makes the engine's
-    device its current device (a per-thread setting).
+    prompt of at most that many ids. With ``embed_dim`` the requests are
+    embedding rows (``submit(prompt_embeds=, neg_prompt_embeds=,
+    prompt_mask=)``, each [P', embed_dim] with P' <= ``prompt_width``),
+    left-padded with zero rows; the padding is masked out of the cond half
+    only, as the engine attends every row of an embedding prompt's uncond
+    half. ``submit`` keeps its payload on the host (lists, CPU tensors): a
+    CUDA call from a client thread while the drive thread captures the
+    decode step would break the capture, so device tensors are refused.
+    The drive thread makes the engine's device its current device (a
+    per-thread setting).
     """
 
     def __init__(self, engine, params, *, batch: int = 4, chunk_steps: int = 128,
                  prompt_width: int, neg_width: int = 0, embed_dim: int = 0,
                  row_sharding: Any = None):
-        _not_ported(embed_dim, row_sharding)
+        if row_sharding is not None:
+            raise NotImplementedError("row_sharding (data-parallel slots) is not ported: the "
+                                      "port serves one device")
         self.engine = engine
         self.params = params
         self.B = batch
         self.chunk_steps = chunk_steps
         self.P = prompt_width
         self.neg_width = neg_width
+        self.embed_dim = embed_dim
         dev = engine.device
         # the drive thread's current device (a per-thread setting)
         self._cuda_index = (None if dev.type != "cuda" else
                             dev.index if dev.index is not None else torch.cuda.current_device())
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
-        self._pending: List[tuple] = []  # (PendingResult, ids, neg, seed)
+        # (PendingResult, ids or (embeds, neg embeds, mask), neg ids, seed)
+        self._pending: List[tuple] = []
         self._count = 0
         self._completed = 0
         self._in_flight = 0
@@ -273,22 +274,29 @@ class StreamingBatcher:
 
     # -- client side -----------------------------------------------------
 
-    def submit(self, prompt_ids, neg_prompt_ids=None, seed: int = 0,
-               prompt_embeds=None) -> PendingResult:
-        if prompt_embeds is not None:
-            _not_ported(1, None)
-        ids = [int(t) for t in prompt_ids]
-        if not 0 < len(ids) <= self.P:
-            raise ValueError(f"prompt length {len(ids)} is outside the bucket (1..{self.P})")
-        neg = [int(t) for t in neg_prompt_ids] if neg_prompt_ids is not None else None
-        if self.neg_width and (neg is None or len(neg) > self.neg_width):
-            raise ValueError(f"a negative prompt of at most {self.neg_width} ids is required")
+    def submit(self, prompt_ids=None, neg_prompt_ids=None, seed: int = 0,
+               prompt_embeds=None, neg_prompt_embeds=None, prompt_mask=None) -> PendingResult:
+        neg = None
+        if self.embed_dim:
+            payload = self._embed_payload(prompt_ids, prompt_embeds, neg_prompt_embeds,
+                                          prompt_mask)
+        else:
+            if prompt_embeds is not None:
+                raise ValueError("a token-mode batcher (embed_dim=0) takes prompt_ids")
+            payload = [int(t) for t in prompt_ids]
+            if not 0 < len(payload) <= self.P:
+                raise ValueError(f"prompt length {len(payload)} is outside the bucket "
+                                 f"(1..{self.P})")
+            neg = [int(t) for t in neg_prompt_ids] if neg_prompt_ids is not None else None
+            if self.neg_width and (neg is None or len(neg) > self.neg_width):
+                raise ValueError(f"a negative prompt of at most {self.neg_width} ids is "
+                                 "required")
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher closed")
             handle = PendingResult(self._count)
             self._count += 1
-            self._pending.append((handle, ids, neg, int(seed)))
+            self._pending.append((handle, payload, neg, int(seed)))
             self._wake.notify()
         return handle
 
@@ -301,6 +309,25 @@ class StreamingBatcher:
         if self._thread.is_alive():
             raise TimeoutError(f"the drive thread did not stop within {timeout} s")
 
+    def _embed_payload(self, prompt_ids, prompt_embeds, neg_prompt_embeds, prompt_mask):
+        """An embedding request's host payload: (embeds, neg embeds, mask)."""
+        if prompt_ids is not None or prompt_embeds is None or neg_prompt_embeds is None:
+            raise ValueError("an embedding-mode batcher takes prompt_embeds and "
+                             "neg_prompt_embeds (the CFG unconditional rows), not prompt_ids")
+        if any(isinstance(t, torch.Tensor) and t.device.type != "cpu"
+               for t in (prompt_embeds, neg_prompt_embeds, prompt_mask)):
+            raise ValueError("submit takes host data: a device tensor would need a CUDA "
+                             "call from the client's thread")
+        pe, ne = torch.as_tensor(prompt_embeds), torch.as_tensor(neg_prompt_embeds)
+        if pe.dim() != 2 or pe.shape[1] != self.embed_dim or not 0 < pe.shape[0] <= self.P:
+            raise ValueError(f"prompt_embeds {tuple(pe.shape)}: expected [1..{self.P}, "
+                             f"{self.embed_dim}]")
+        if ne.shape != pe.shape:
+            raise ValueError("neg_prompt_embeds must have prompt_embeds' shape")
+        pm = (torch.ones(pe.shape[0], dtype=torch.bool) if prompt_mask is None
+              else torch.as_tensor(prompt_mask, dtype=torch.bool).reshape(pe.shape[0]))
+        return pe, ne.to(pe.dtype), pm
+
     # -- drive loop ------------------------------------------------------
 
     @staticmethod
@@ -309,10 +336,23 @@ class StreamingBatcher:
         return [0] * pad + ids, [False] * pad + [True] * len(ids)
 
     def _rows(self, reqs: Dict[int, tuple], fill: tuple) -> dict:
-        """[B]-row engine arguments (host numpy) and per-slot seeds; slots
-        outside ``reqs`` get ``fill``'s prompt."""
+        """[B]-row engine arguments (host numpy or CPU tensors) and per-slot
+        seeds; slots outside ``reqs`` get ``fill``'s prompt."""
         B = self.B
-        ids_rows, mask_rows, neg_rows, negm_rows, seeds = [], [], [], [], []
+        seeds = [reqs[b][3] if b in reqs else 0 for b in range(B)]
+        if self.embed_dim:
+            pe_rows, ne_rows, mask_rows = [], [], []
+            for b in range(B):
+                pe, ne, pm = reqs.get(b, fill)[1]
+                z = torch.zeros((self.P - pe.shape[0], self.embed_dim), dtype=pe.dtype)
+                pe_rows.append(torch.cat([z, pe]))
+                ne_rows.append(torch.cat([z, ne]))
+                mask_rows.append(torch.cat([torch.zeros(len(z), dtype=torch.bool), pm]))
+            kw = dict(prompt=None, prompt_embeds=torch.stack(pe_rows),
+                      neg_prompt_embeds=torch.stack(ne_rows),
+                      prompt_mask=torch.stack(mask_rows))
+            return dict(kw=kw, seeds=seeds)
+        ids_rows, mask_rows, neg_rows, negm_rows = [], [], [], []
         for b in range(B):
             r = reqs.get(b, fill)
             row, m = self._pad_row(r[1], self.P)
@@ -322,7 +362,6 @@ class StreamingBatcher:
                 row, m = self._pad_row(r[2], self.neg_width)
                 neg_rows.append(row)
                 negm_rows.append(m)
-            seeds.append(r[3] if b in reqs else 0)
         kw = dict(prompt=np.asarray(ids_rows, np.int32),
                   prompt_mask=np.asarray(mask_rows, bool))
         if self.neg_width:

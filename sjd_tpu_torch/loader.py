@@ -1,5 +1,6 @@
 """Model loading (sjd_tpu/loader.py): ``load_lumina_mgpt``, ``load_emu3``,
-``load_anole`` and the ``load_pretrained_model`` registry.
+``load_anole``, ``load_llamagen`` and the ``load_pretrained_model``
+registry.
 
 The decoder comes from a checkpoint directory (``ckpt_dir``: sharded
 ``.safetensors``, ``pytorch_model*.bin``, ``.pt`` or ``.pth``, HF naming)
@@ -264,6 +265,7 @@ def load_emu3(
     positive_suffix: Optional[str] = None,
     quantize=True,  # True/8: W8A16; 4/"int4": W4A16 + int8 head; "w4a8": W4A8
     embed_bits: Optional[int] = None,  # 8: the int8 per-row embedding table
+    kv_quant: bool = False,  # the int8 KV cache (the JAX loader's is bf16)
     vq_dtype: Optional[torch.dtype] = None,  # e.g. torch.bfloat16 for the VQ
     model_cfg=None,  # DecoderConfig override; must keep the Emu3 vocab layout
     vq_cfg=None,  # Emu3VQConfig override
@@ -290,8 +292,8 @@ def load_emu3(
                                   os.path.join(tokenizer_dir, "emu3_vision_tokens.txt"))
     eng = emu3_engine(h=h, w=w, window=window, guidance_scale=guidance_scale,
                       image_top_k=image_top_k, scheme=scheme, init=init,
-                      act_quant=_act_quant_of(quantize), model_cfg=model_cfg,
-                      device=dev)
+                      kv_quant=kv_quant, act_quant=_act_quant_of(quantize),
+                      model_cfg=model_cfg, device=dev)
     params = _build_decoder_params(eng.model_cfg, ckpt_dir, quantize, embed_bits, dev)
     vq_cfg = vq_cfg if vq_cfg is not None else EMU3_VQ
     if vq_dtype is not None:
@@ -434,6 +436,7 @@ def load_anole(
     tokenizer=None,  # any object with encode (and get_vocab for the image tokens)
     quantize=False,
     embed_bits: Optional[int] = None,
+    kv_quant: bool = False,  # the int8 KV cache (the JAX loader's is bf16)
     model_cfg=None,  # DecoderConfig override
     vq_cfg=None,  # VQConfig override
     image_seq_length: int = 1024,  # tokens per image (32 x 32 latents)
@@ -455,9 +458,9 @@ def load_anole(
     mode = normalize_mode(multimodal_generation_mode)
     eng = anole_engine(window=window, guidance_scale=guidance_scale, image_top_k=image_top_k,
                        text_top_k=text_top_k, scheme=scheme, init=init,
-                       multimodal_generation_mode=mode, act_quant=_act_quant_of(quantize),
-                       model_cfg=model_cfg, image_seq_length=image_seq_length,
-                       device=dev)
+                       multimodal_generation_mode=mode, kv_quant=kv_quant,
+                       act_quant=_act_quant_of(quantize), model_cfg=model_cfg,
+                       image_seq_length=image_seq_length, device=dev)
     params = _build_decoder_params(eng.model_cfg, ckpt_dir, quantize, embed_bits, dev)
     vq_cfg = vq_cfg if vq_cfg is not None else CHAMELEON_VQ
     if vq_ckpt:
@@ -541,21 +544,138 @@ def load_anole(
                        extras=_mark_smoke(extras, "anole", smoke))
 
 
-def _load_llamagen(**kwargs):
-    raise NotImplementedError("LlamaGen is not ported yet")
+def load_llamagen(
+    gpt_ckpt: Optional[str] = None,
+    vq_ckpt: Optional[str] = None,
+    *,
+    name: str = "GPT-XL",
+    latent_size: int = 16,
+    model_type: str = "c2i",
+    cls_token_num: Optional[int] = None,
+    window: int = 16,
+    guidance_scale: float = 7.5,
+    image_top_k: int = 1000,
+    scheme: str = "speculative_jacobi",
+    init: str = "random",
+    t5_dir: Optional[str] = None,  # the T5 encoder's config.json and shards
+    t5_tokenizer=None,  # the T5 tokenizer (t5.T5Embedder): needed for t2i prompts
+    quantize=False,  # True/8: W8A16; 4/"int4": W4A16 + int8 head; "w4a8": W4A8
+    embed_bits: Optional[int] = None,  # 8: the int8 per-row embedding table
+    model_cfg=None,  # DecoderConfig override; rope_2d_grid_side must be latent_size
+    vq_cfg=None,  # VQConfig override
+    device=None,
+) -> LoadedModel:
+    """LlamaGen (sjd_tpu/loader.py:load_llamagen): class-conditional
+    (``model_type="c2i"``, a class id as the prompt, one condition row) or
+    text-conditional (``"t2i"``, a caption through T5 into 120 condition
+    rows). The GPT and its condition embedder come from ``gpt_ckpt``
+    (gpt-fast naming) or are random (seeds 0 and 1), the VQ-16 decoder from
+    ``vq_ckpt`` (LlamaGen naming) or random (seed 2), the T5 encoder from
+    ``t5_dir`` or random (seed 3, flan-t5-xl's widths) once
+    ``t5_tokenizer`` is given.
+    ``sample_fn(prompt)`` -> uint8 [16 latent_size, 16 latent_size, 3];
+    ``embed_prompt_fn(prompt)`` -> the prompt's (cond, uncond, mask) rows,
+    the serving seam for ``StreamingBatcher(embed_dim=...)``."""
+    from .models.llamagen import (
+        embed_caption, embed_class, embed_uncond_caption, embed_uncond_class,
+        init_cond_params, llamagen_engine)
+    from .models.vq import LLAMAGEN_VQ16, decode as vq_decode, init_vq_params, port_vqgan
+
+    if model_type not in ("c2i", "t2i"):
+        raise ValueError(f"model_type {model_type!r}: expected 'c2i' or 't2i'")
+    if t5_dir and t5_tokenizer is None:
+        raise ValueError("t5_dir needs t5_tokenizer: the port reads no sentencepiece model")
+    dev = resolve_device(device)
+    if cls_token_num is None:
+        cls_token_num = 1 if model_type == "c2i" else 120
+    eng = llamagen_engine(name=name, latent_size=latent_size, cls_token_num=cls_token_num,
+                          window=window, guidance_scale=guidance_scale,
+                          image_top_k=image_top_k, scheme=scheme, init=init,
+                          act_quant=_act_quant_of(quantize), model_cfg=model_cfg, device=dev)
+    cfg = eng.model_cfg
+    t5 = None
+    if model_type == "t2i" and t5_tokenizer is not None:
+        from .models.t5 import T5Embedder
+
+        t5 = T5Embedder(t5_dir, t5_tokenizer, max_length=cls_token_num, device=dev)
+    if gpt_ckpt:
+        from .utils.port import load_torch_checkpoint, port_llamagen
+
+        params, cond = port_llamagen(load_torch_checkpoint(gpt_ckpt), cfg, device=dev)
+        params = quantize_ported_params(params, cfg, quantize, embed_bits)
+    else:
+        params = _build_decoder_params(cfg, None, quantize, embed_bits, dev)
+        cond = init_cond_params(1, cfg, model_type=model_type, device=dev,
+                                caption_dim=t5.config.d_model if t5 is not None else 2048)
+    vq_cfg = vq_cfg if vq_cfg is not None else LLAMAGEN_VQ16
+    if vq_ckpt:
+        from .utils.port import load_torch_checkpoint
+
+        vq_params = port_vqgan(load_torch_checkpoint(vq_ckpt), vq_cfg, style="llamagen",
+                               device=dev)
+    else:
+        vq_params = init_vq_params(2, vq_cfg, device=dev)
+    extras: dict = {"vq_params": vq_params, "vq_cfg": vq_cfg, "cond": cond, "t5": t5,
+                    "prompt_width": cls_token_num, "embed_dim": cfg.hidden_size,
+                    "last_result": None, "quantize": quantize}
+
+    def embed_prompt_fn(prompt):
+        """A class id (c2i) or a caption (t2i) -> (prompt_embeds [1, P, d],
+        neg_prompt_embeds [1, P, d], prompt_mask [1, P] or None). A
+        caption's left-padded rows are masked out of the cond half."""
+        if model_type == "c2i":
+            label = torch.tensor([int(prompt)], device=dev)
+            return (embed_class(cond, label, cfg.dtype), embed_uncond_class(cond, 1, cfg.dtype),
+                    None)
+        if t5 is None:
+            raise ValueError("t2i prompts need the T5 encoder: pass t5_tokenizer (and t5_dir)")
+        feats, mask = t5.get_text_embeddings([str(prompt)])
+        return (embed_caption(cond, torch.from_numpy(feats).to(dev), cfg.dtype),
+                embed_uncond_caption(cond, 1, cfg.dtype),
+                torch.as_tensor(mask, dtype=torch.bool, device=dev))
+
+    def decode_image_fn(toks) -> np.ndarray:
+        """A token row (the prompt's placeholder rows, then the image) ->
+        uint8 image."""
+        ids = torch.as_tensor([int(t) for t in toks[cls_token_num:
+                                                     cls_token_num + latent_size ** 2]],
+                              device=dev)[None]
+        with torch.no_grad():
+            pixels = vq_decode(vq_params, vq_cfg, ids, (latent_size, latent_size))
+        return pixels_to_uint8(pixels[0])
+
+    def sample_fn(prompt, rng_seed: int = 42) -> np.ndarray:
+        pe, ne, mask = embed_prompt_fn(prompt)
+        res = eng.generate(params, rng_seed, prompt_embeds=pe, neg_prompt_embeds=ne,
+                           prompt_mask=mask)
+        extras["last_result"] = res
+        return decode_image_fn(res.tokens[0, : int(res.length[0])].tolist())
+
+    extras.update(embed_prompt_fn=embed_prompt_fn, decode_image_fn=decode_image_fn)
+    smoke = []
+    if not gpt_ckpt:
+        smoke.append("random GPT weights (no gpt_ckpt)")
+    if not vq_ckpt:
+        smoke.append("random VQ decoder (no vq_ckpt)")
+    if model_type == "t2i" and t5 is None:
+        smoke.append("no T5 encoder (t2i prompts unusable until t5_tokenizer given)")
+    elif model_type == "t2i" and not t5_dir:
+        smoke.append("random T5 encoder (no t5_dir)")
+    return LoadedModel(name=f"llamagen-{name}", engine=eng, params=params,
+                       sample_fn=sample_fn,
+                       extras=_mark_smoke(extras, f"llamagen-{name}", smoke))
 
 
 _REGISTRY = {
     "lumina_mgpt": load_lumina_mgpt,
     "anole": load_anole,
     "emu3": load_emu3,
-    "llamagen": _load_llamagen,
+    "llamagen": load_llamagen,
 }
 
 
 def load_pretrained_model(model_name: str, **kwargs) -> LoadedModel:
-    """Dispatch on a substring of the name; "llamagen" raises until it is
-    ported."""
+    """Dispatch on a substring of the name (the JAX registry's)."""
     for key, fn in _REGISTRY.items():
         if key in model_name.lower():
             return fn(**kwargs)

@@ -16,9 +16,11 @@ def decoder_model_fns(cfg: transformer.DecoderConfig, *,
     dev = resolve_device(device)
     rope = transformer.make_rope_table(cfg, max_positions, device=dev)
 
-    def forward(params, ids, positions, kv, cache_end, valid, logits_tail=None):
+    def forward(params, ids, positions, kv, cache_end, valid, logits_tail=None,
+                inputs_embeds=None):
         out = transformer.forward(params, cfg, ids, positions, kv, cache_end,
-                                  valid, rope, logits_tail=logits_tail)
+                                  valid, rope, logits_tail=logits_tail,
+                                  inputs_embeds=inputs_embeds)
         return out.logits, out.kv
 
     def init_cache(batch: int, buf_len: int):

@@ -70,7 +70,7 @@ def anole_engine(
     dtype: torch.dtype = torch.bfloat16,
     greedy: bool = False,
     multimodal_generation_mode: str = "image-only",
-    kv_quant: bool = True,  # the int8 KV cache the kernels read
+    kv_quant: bool = False,  # True: the int8 KV cache (the JAX factory has none)
     act_quant: str = "bf16",
     model_cfg: Optional[DecoderConfig] = None,  # overrides the 7B config
     image_seq_length: int = IMAGE_SEQ_LENGTH,

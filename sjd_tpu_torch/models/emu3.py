@@ -78,7 +78,7 @@ def emu3_engine(
     temperature: float = 1.0,
     dtype: torch.dtype = torch.bfloat16,
     greedy: bool = False,
-    kv_quant: bool = True,  # the int8 KV cache the kernels read
+    kv_quant: bool = False,  # True: the int8 KV cache (the JAX factory has none)
     act_quant: str = "bf16",
     model_cfg: Optional[DecoderConfig] = None,  # overrides the 8B config; must
     # keep the Emu3 vocab layout

@@ -44,7 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..ops.decode_attention import _KERNEL_HEAD_DIMS as _ATTENTION_HEAD_DIMS
 from ..ops.decode_attention import NEG_INF, decode_attention, decode_masks
+from ..ops.fused_epilogue import _KERNEL_HEAD_DIMS as _EPILOGUE_HEAD_DIMS
 from ..ops.fused_epilogue import fused_epilogue_into_cache, quantize_rows, write_kv_layer
 from ..ops.quant_linear import (
     quant_linear_a8, quant_linear_a8_plain, quant_linear_a16, quant_linear_a16_plain)
@@ -55,6 +57,8 @@ Params = Dict[str, object]
 # window width up to which forward() takes the kernels (transformer.py's
 # Pallas cutoff: the decode windows, not prompt-length prefills)
 KERNEL_MAX_T = 32
+# the head widths both TPU kernels' Hopper kernels take
+KERNEL_HEAD_DIMS = tuple(d for d in _ATTENTION_HEAD_DIMS if d in _EPILOGUE_HEAD_DIMS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +74,9 @@ class DecoderConfig:
     num_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
-    rope_style: str = "1d"  # "2d" (LlamaGen) is not ported yet
+    # "1d": RoPE on the position ids; "2d": LlamaGen's grid RoPE (a quarter
+    # of the rotary dims per half encodes the row, a quarter the column)
+    rope_style: str = "1d"
     qk_norm: bool = False
     qk_norm_eps: float = 1e-5
     swin_norm: bool = False
@@ -86,6 +92,10 @@ class DecoderConfig:
     norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # the 2-D table's conditioning positions before the image grid (zero
+    # rotation) and the grid's side (LlamaGen)
+    rope_2d_cls_len: int = 120
+    rope_2d_grid_side: int = 32
     max_position_embeddings: int = 16384
 
     @property
@@ -95,6 +105,19 @@ class DecoderConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+def check_kernel_head_dim(cfg: DecoderConfig, device) -> None:
+    """Refuse, when a model is built, a head width that the kernels do not
+    take on a device where ``forward`` would launch them (CUDA with
+    ``attn_impl="auto"``): the first decode window would raise otherwise.
+    The plain path is an explicit choice, never a silent one."""
+    if (torch.device(device).type == "cuda" and cfg.attn_impl == "auto"
+            and cfg.head_dim not in KERNEL_HEAD_DIMS):
+        raise ValueError(
+            f"head_dim {cfg.head_dim}: the CUDA kernels take head widths "
+            f"{KERNEL_HEAD_DIMS}; pass a config with attn_impl=\"plain\" to run this "
+            f"model on the plain attention path")
 
 
 class KVCache(NamedTuple):
@@ -149,12 +172,38 @@ def rope_table_1d(cfg: DecoderConfig, max_pos: int, device=None) -> Tensor:
     return torch.stack([torch.cos(emb), torch.sin(emb)], dim=1)
 
 
+def rope_table_2d(cfg: DecoderConfig, max_pos: int, device=None) -> Tensor:
+    """LlamaGen's 2-D grid RoPE as a table over absolute positions: zero
+    angle for the ``rope_2d_cls_len`` conditioning positions, then position
+    p at grid row (p - cls_len) // side and column (p - cls_len) % side,
+    the angles in the split-half layout ``[row, col, row, col]`` (each a
+    quarter of ``head_dim``)."""
+    dev = resolve_device(device)
+    quarter = cfg.head_dim // 4
+    inv_freq = 1.0 / (
+        cfg.rope_theta ** (torch.arange(0, quarter, dtype=torch.float32, device=dev) / quarter)
+    )
+    pos = torch.arange(max_pos, dtype=torch.int32, device=dev)
+    grid_pos = torch.clamp_min(pos - cfg.rope_2d_cls_len, 0)
+    side = cfg.rope_2d_grid_side
+    row = torch.div(grid_pos, side, rounding_mode="floor").float()
+    col = (grid_pos % side).float()
+    in_grid = (pos >= cfg.rope_2d_cls_len).float()[:, None]
+    f_row = row[:, None] * inv_freq[None, :] * in_grid
+    f_col = col[:, None] * inv_freq[None, :] * in_grid
+    half = torch.cat([f_row, f_col], dim=-1)
+    emb = torch.cat([half, half], dim=-1)
+    return torch.stack([torch.cos(emb), torch.sin(emb)], dim=1)
+
+
 def make_rope_table(cfg: DecoderConfig, max_pos: Optional[int] = None,
                     device=None) -> Tensor:
     max_pos = max_pos or cfg.max_position_embeddings
+    if cfg.rope_style == "2d":
+        return rope_table_2d(cfg, max_pos, device)
     if cfg.rope_style == "1d":
         return rope_table_1d(cfg, max_pos, device)
-    raise ValueError(f"rope_style {cfg.rope_style!r} is not ported")
+    raise ValueError(f"unknown rope_style {cfg.rope_style!r}")
 
 
 def _rotate_half(x: Tensor) -> Tensor:
@@ -545,12 +594,18 @@ def forward(
     rope_table: Tensor,  # [P, 2, D] f32
     *,
     logits_tail: Optional[int] = None,
+    inputs_embeds: Optional[Tensor] = None,  # [S, T, d]: in place of ids' rows
 ) -> ForwardResult:
     """One forward over a window of T tokens with the static KV cache
-    (prefill: T = prompt length, cache_end = 0; SJD: T = window)."""
+    (prefill: T = prompt length, cache_end = 0; SJD: T = window).
+    ``inputs_embeds`` enters the layers in place of the embedded ``ids``
+    (LlamaGen's conditioning prefix; ``ids`` then only gives the shape)."""
     S, T = ids.shape
     L_buf = kv.buf_len
-    h = embed_lookup(params, ids, cfg.dtype)
+    if inputs_embeds is not None:
+        h = inputs_embeds.to(cfg.dtype)
+    else:
+        h = embed_lookup(params, ids, cfg.dtype)
     rope = rope_table[positions.long()]  # [S, T, 2, D]
     cos, sin = rope[:, :, 0].contiguous(), rope[:, :, 1].contiguous()
     cache_end = cache_end.to(torch.int32).expand(S).contiguous()

@@ -54,6 +54,10 @@ class VQConfig:
 
 
 CHAMELEON_VQ = VQConfig(n_embed=8192, embed_dim=256)
+# LlamaGen's VQ-16 and VQ-8: 16384 codes of 8 dims, L2-normalised
+LLAMAGEN_VQ16 = VQConfig(n_embed=16384, embed_dim=8, l2_norm_codebook=True)
+LLAMAGEN_VQ8 = VQConfig(ch_mult=(1, 2, 2, 4), n_embed=16384, embed_dim=8,
+                        l2_norm_codebook=True)
 
 
 # ---------------------------------------------------------------------------

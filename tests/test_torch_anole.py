@@ -165,8 +165,8 @@ def test_tiny_anole_engine_greedy_equals_jax(jax_params, mode):
               image_top_k=64, text_top_k=64)
     jeng = janole.anole_engine(model_cfg=dataclasses.replace(TINY_CHAMELEON, kv_quant=True),
                                **kw)
-    eng = panole.anole_engine(model_cfg=decoder_config_from_jax(TINY_CHAMELEON), device="cpu",
-                              **kw)
+    eng = panole.anole_engine(model_cfg=decoder_config_from_jax(TINY_CHAMELEON), kv_quant=True,
+                              device="cpu", **kw)
     params = params_from_jax(np_tree(jax_params), eng.model_cfg, device="cpu")
     ids = list(range(9000, 9010)) + ([panole.BOI_ID] if mode == "image-only" else [])
     key = jax.random.PRNGKey(5)
@@ -242,6 +242,36 @@ def test_anole_disk_drill_equals_jax(anole_files):
     assert pm.sample_fn("an apple", 0).shape == (64, 64, 3)
 
 
+def test_load_anole_default_engine_equals_jax(anole_files):
+    """Both loaders' own engines with no kv_quant passed on either side: a
+    cache of the model's dtype with no scales on both, and, made greedy,
+    the same tokens, NFE and accept_hist."""
+    ckpt_dir, vq_path = anole_files
+    kw = dict(ckpt_dir=ckpt_dir, vq_ckpt=vq_path, tokenizer=ChameleonFakeTokenizer(),
+              image_seq_length=16)
+    jm = jax_loader.load_anole(model_cfg=TINY_CHAMELEON, vq_cfg=TINY_CHAMELEON_VQ, **kw)
+    pm = load_anole(model_cfg=decoder_config_from_jax(TINY_CHAMELEON),
+                    vq_cfg=vq_config_from_jax(TINY_CHAMELEON_VQ), device="cpu", **kw)
+    assert jm.engine.model_cfg.kv_quant is False and pm.engine.model_cfg.kv_quant is False
+    kv = pm.engine.model.init_cache(2, 8)
+    assert kv.k.dtype == torch.float32 and kv.k_scale is None
+    for m in (jm, pm):
+        m.engine.sampling = dataclasses.replace(m.engine.sampling, greedy=True)
+    jeng, eng = jm.engine, pm.engine
+    ids = pm.extras["prompt_ids_fn"]("an apple")
+    key = jax.random.PRNGKey(4)
+    want = jeng.generate(jm.params, key, jnp.asarray([ids], jnp.int32))
+    W = eng.config.window
+    seeds = _replayed_seeds(key, 1, W, eng.spec.image_vocab_start, eng.spec.image_vocab_end)
+    eng._draws = lambda st: StepDraws(next(seeds), None, torch.rand(1, W - 1), None)
+    got = eng.generate(pm.params, 0, torch.tensor([ids]))
+    n = int(want.length[0])
+    assert int(got.length[0]) == n
+    assert got.tokens[0, :n].tolist() == np.asarray(want.tokens[0, :n]).tolist()
+    assert got.nfe == int(want.nfe)
+    np.testing.assert_array_equal(got.accept_hist.numpy(), np.asarray(want.accept_hist))
+
+
 def test_encode_image_fn_equals_jax():
     """tests/test_image_input.py:125 on both loaders: pixels -> VQ codes ->
     the tokenizer's BPE permutation; the same ids (taming VQ at tiny
@@ -264,11 +294,17 @@ def test_encode_image_fn_equals_jax():
 
 
 def test_registry_dispatches_and_refuses_llamagen():
+    """Anole by name; LlamaGen by name too (ported), refused only where its
+    device is (CUDA, by default, on a machine without it) or its head width
+    is not to be had; an unknown name refused."""
     m = load_pretrained_model("Anole-7b", model_cfg=decoder_config_from_jax(TINY_CHAMELEON),
                               vq_cfg=vq_config_from_jax(TINY_CHAMELEON_VQ),
                               image_seq_length=16, device="cpu")
     assert m.name == "anole" and m.smoke and len(m.extras["smoke_reasons"]) == 3
-    with pytest.raises(NotImplementedError):
-        load_pretrained_model("LlamaGen-XL")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_pretrained_model("LlamaGen-XL")
+    with pytest.raises(KeyError):
+        load_pretrained_model("LlamaGen-XL", name="GPT-9B", device="cpu")
     with pytest.raises(ValueError):
         load_pretrained_model("dalle")

@@ -342,6 +342,46 @@ def test_emu3_disk_drill_equals_jax(emu3_files):
     assert pm.sample_fn("a landscape", 0).shape == (side, side, 3)
 
 
+def _greedy(model):
+    model.engine.sampling = dataclasses.replace(model.engine.sampling, greedy=True)
+    return model.engine
+
+
+def test_load_emu3_default_engine_equals_jax(emu3_files):
+    """Both loaders' own engines with no kv_quant passed on either side: a
+    cache of the model's dtype with no scales on both (the JAX
+    DecoderConfig default), and, made greedy, the same tokens, NFE and
+    accept_hist."""
+    ckpt_dir, vq_dir = emu3_files
+    jcfg = dataclasses.replace(TINY_EMU3, num_kv_heads=2)
+    kw = dict(ckpt_dir=ckpt_dir, vq_ckpt_dir=vq_dir, h=2, w=2, quantize=False,
+              tokenizer=Emu3FakeTokenizer())
+    jm = jax_loader.load_emu3(model_cfg=jcfg, vq_cfg=TINY_EMU3_VQ, **kw)
+    pm = load_emu3(model_cfg=decoder_config_from_jax(jcfg),
+                   vq_cfg=emu3_vq_config_from_jax(TINY_EMU3_VQ), device="cpu", **kw)
+    assert jm.engine.model_cfg.kv_quant is False and pm.engine.model_cfg.kv_quant is False
+    kv = pm.engine.model.init_cache(2, 8)
+    assert kv.k.dtype == torch.float32 and kv.k_scale is None
+    jeng, eng = _greedy(jm), _greedy(pm)
+    ids, neg = pm.extras["prompt_ids_fn"]("a landscape"), pm.extras["neg_ids_fn"]()
+    key = jax.random.PRNGKey(4)
+    want = jeng.generate(jm.params, key, jnp.asarray([ids], jnp.int32),
+                         neg_prompt=jnp.asarray([neg], jnp.int32))
+    W = eng.config.window
+    seeds = _replayed_seeds(key, 1, W, eng.spec.image_vocab_start, eng.spec.image_vocab_end)
+    eng._draws = lambda st: StepDraws(next(seeds), None, torch.rand(1, W - 1), None)
+    got = eng.generate(pm.params, 0, torch.tensor([ids]), neg_prompt=torch.tensor([neg]))
+    n = int(want.length[0])
+    assert int(got.length[0]) == n
+    assert got.tokens[0, :n].tolist() == np.asarray(want.tokens[0, :n]).tolist()
+    assert got.nfe == int(want.nfe)
+    np.testing.assert_array_equal(got.accept_hist.numpy(), np.asarray(want.accept_hist))
+    # the int8 cache stays an explicit choice
+    q = load_emu3(model_cfg=decoder_config_from_jax(jcfg), h=2, w=2, quantize=False,
+                  kv_quant=True, vq_cfg=emu3_vq_config_from_jax(TINY_EMU3_VQ), device="cpu")
+    assert q.engine.model_cfg.kv_quant is True
+
+
 def test_load_emu3_understand_fn_runs_the_bucketed_prompt():
     """understand_fn: the image through the VQ encoder into the left-padded
     understanding prompt, no CFG, no grammar; the answer stays in budget."""

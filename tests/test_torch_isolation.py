@@ -1,6 +1,6 @@
 """sjd_tpu_torch imports neither JAX nor any module of sjd_tpu, and none of
 safetensors, transformers, tokenizers, sentencepiece, PIL and tiktoken when
-its modules are imported (the Emu3 and Anole modules included): the machine with the GPU has none of them, so such an
+its modules are imported (the Emu3, Anole, LlamaGen and T5 modules included): the machine with the GPU has none of them, so such an
 import would break the port there."""
 
 import json
@@ -35,6 +35,7 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
     expected = len(list(pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")))
     assert seen["n_modules"] == expected >= 31
     for name in ("models.emu3", "models.anole", "models.vq.emu3_vq", "models.vq.emu3_port",
-                 "data.emu3_processor", "utils.emu3_tokenizer"):
+                 "data.emu3_processor", "utils.emu3_tokenizer", "models.llamagen",
+                 "models.t5"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

@@ -83,7 +83,25 @@ EPILOGUE_CASES = {
     # Emu3-Gen 8B: 32 query heads over 8 KV heads, 32 layers, a 720px
     # image's buffer (8.2k generated rows), the last layer
     "emu3": ((2, 16, 32, 8, 128, 32, 8704, 31), (8190, 40)),
+    # LlamaGen GPT-XL: 20 heads of 64 (MHA), 36 layers, a 512px image's
+    # buffer behind 120 caption rows, the last layer; the cos/sin rows come
+    # from the 2-D table (ROPE_2D_CASES): sample 1's window lies in the
+    # caption rows, which do not rotate
+    "llamagen_xl": ((2, 16, 20, 20, 64, 36, 1280, 35), (1140, 100)),
 }
+ROPE_2D_CASES = {"llamagen_xl"}
+
+
+def _rope_2d_rows(cuda, ends, T):
+    """cos, sin [S, T, 64] of GPT-XL's 2-D table (120 caption rows, a 32 x 32
+    grid) at rows ends[s] .. ends[s] + T - 1."""
+    from sjd_tpu_torch.models.llamagen import llamagen_config
+    from sjd_tpu_torch.models.transformer import make_rope_table
+
+    table = make_rope_table(llamagen_config("GPT-XL", block_size=1024, cls_token_num=120),
+                            1280, device=cuda)
+    pos = torch.tensor(ends, device=cuda)[:, None] + torch.arange(T, device=cuda)
+    return table[pos, 0].contiguous(), table[pos, 1].contiguous()
 
 
 def _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize):
@@ -105,6 +123,8 @@ def test_epilogue_into_cache_matches_plain(cuda, case, quantize, qk_norm):
     left bit-unchanged."""
     (S, T, H, Hkv, D, NL, L, layer), ends = EPILOGUE_CASES[case]
     args = _epilogue_inputs(cuda, S, T, H, Hkv, D, qk_norm)
+    if case in ROPE_2D_CASES:
+        args = (*args[:7], *_rope_2d_rows(cuda, ends, T))
     cache_end = torch.tensor(ends, dtype=torch.int32, device=cuda)
     got_c = _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize)
     want_c = _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize)
@@ -152,6 +172,11 @@ ATTENTION_CASES = {
     "emu3_fill150": ((2, 16, 32, 8, 128, 2, 8704), (150, 150), (0, 4)),
     "emu3_fill4000": ((2, 16, 32, 8, 128, 2, 8704), (4000, 4000), (0, 4)),
     "emu3_fill8190": ((2, 16, 32, 8, 128, 2, 8704), (8190, 8190), (0, 4)),
+    # LlamaGen GPT-XL: MHA, 20 heads of 64 (16 query rows per KV head), a
+    # 512px image's buffer, the cond half's caption left-padded by 100 rows;
+    # the first window and the last
+    "llamagen_xl_fill150": ((2, 16, 20, 20, 64, 2, 1280), (150, 150), (100, 0)),
+    "llamagen_xl_fill1140": ((2, 16, 20, 20, 64, 2, 1280), (1140, 1140), (100, 0)),
 }
 
 
@@ -321,6 +346,41 @@ def test_emu3_heads_forward_kernel_path_matches_plain_path(cuda):
     assert err <= 0.05 * outs[1].abs().max().item(), err
 
 
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_llamagen_heads_forward_kernel_path_matches_plain_path(cuda, kv_quant):
+    """GPT-XL's attention shape in a 2-layer decoder: 20 heads of 64 (MHA),
+    no qk-norm, the 2-D RoPE table, bf16 weights; a 12-row prefill from
+    embeddings (condition rows, 5 of them masked in sample 0) and a window
+    of ids at grid positions, through the kernels against attn_impl="plain"."""
+    import dataclasses
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.llamagen import llamagen_config
+
+    cfg = dataclasses.replace(llamagen_config("GPT-XL", block_size=1024, cls_token_num=12),
+                              vocab_size=1024, num_layers=2, kv_quant=kv_quant)
+    params = pt.init_params(0, cfg, device=cuda)
+    rope = pt.make_rope_table(cfg, 1100, device=cuda)
+    S, P, W, L = 2, 12, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    embeds = 0.02 * torch.randn((S, P, cfg.hidden_size), generator=gen, device=cuda)
+    ids = torch.randint(0, 1024, (S, W), generator=gen, device=cuda)
+    valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
+    valid[0, :5] = False
+    pos = torch.clamp_min(torch.cumsum(valid[:, :P].int(), 1) - 1, 0)
+    pos_w = pos[:, -1:] + 1 + torch.arange(W, device=cuda)
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
+        kv = pt.init_kv_cache(c, S, L, device=cuda)
+        zero = torch.zeros((S,), dtype=torch.int32, device=cuda)
+        pt.forward(params, c, torch.zeros((S, P), dtype=torch.int32, device=cuda), pos, kv,
+                   zero, valid, rope, inputs_embeds=embeds)
+        outs.append(pt.forward(params, c, ids, pos_w, kv, zero + P, valid, rope).logits)
+    err = (outs[0] - outs[1]).abs().max().item()
+    assert torch.isfinite(outs[0]).all()
+    assert err <= 0.05 * outs[1].abs().max().item(), err
+
+
 # -- the engine's captured decode step --------------------------------------
 
 
@@ -433,6 +493,40 @@ def test_executed_launches_are_layers_times_forwards(cuda):
                    "quant_linear_a16": 0, "quant_linear_a8": 0}
     assert eng.stats.captured_launches == per_forward  # the capture records one forward
     assert executed == {k: n * res.nfe for k, n in per_forward.items()}
+
+
+def test_refill_with_embeddings_under_graph_keeps_live_slot_and_does_not_recapture(cuda):
+    """A LlamaGen c2i engine (2 layers of GPT-XL's heads, a 16 x 16 grid) on
+    the graph path: slot 0 re-armed from new class embeddings mid-flight
+    (the eager small-cache prefill) replays on without a recapture, and
+    slot 1's tokens equal a run without the refill."""
+    import dataclasses
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.llamagen import (
+        embed_class, embed_uncond_class, init_cond_params, llamagen_config, llamagen_engine)
+
+    cfg = dataclasses.replace(llamagen_config("GPT-XL", block_size=256, cls_token_num=1),
+                              num_layers=2)
+    eng = llamagen_engine(latent_size=16, model_cfg=cfg, device=cuda)
+    params = pt.init_params(0, cfg, device=cuda)
+    cond = init_cond_params(1, cfg, device=cuda)
+    kw = dict(prompt_embeds=embed_class(cond, torch.tensor([3, 9], device=cuda), cfg.dtype),
+              neg_prompt_embeds=embed_uncond_class(cond, 2, cfg.dtype))
+    want = eng.generate(params, 3, max_steps=40, **kw)
+    _, state = eng.generate(params, 3, max_steps=20, return_state=True, **kw)
+    captures = eng.stats.captures
+    fresh = embed_class(cond, torch.tensor([5, 5], device=cuda), cfg.dtype)
+    state = eng.refill(params, state, None, [True, False], prompt_embeds=fresh,
+                       neg_prompt_embeds=kw["neg_prompt_embeds"])
+    assert state.nfe == 21
+    # 19 + 20 decode steps, as the 39 of the run without the refill
+    _, state = eng.resume(params, state, max_steps=20, return_state=True)
+    assert eng.stats.captures == captures == 1
+    n = int(want.length[1])
+    assert int(state.length[1]) == n
+    assert torch.equal(state.tokens[1, :n], want.tokens[1, :n])
+    assert int(state.length[0]) > 2  # the refilled slot decodes on
 
 
 # -- quantized-weight products (csrc/quant_linear.cu) -------------------------

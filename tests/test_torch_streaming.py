@@ -187,14 +187,21 @@ def test_greedy_streaming_batcher_equals_jax(jax_params, params):
 
 
 def test_streaming_batcher_refuses_what_it_does_not_take(params):
-    with pytest.raises(NotImplementedError, match="embed_dim"):
-        StreamingBatcher(engine(), params, prompt_width=5, embed_dim=8)
+    """Data-parallel slots; a prompt over the bucket; embeddings in token
+    mode, and ids or embeddings of the wrong width in embedding mode."""
+    eb = StreamingBatcher(engine(), params, prompt_width=5, embed_dim=8)
+    with pytest.raises(ValueError, match="prompt_embeds"):
+        eb.submit([1, 2])
+    with pytest.raises(ValueError, match="expected"):
+        eb.submit(prompt_embeds=np.zeros((1, 7), np.float32),
+                  neg_prompt_embeds=np.zeros((1, 7), np.float32))
+    eb.close()
     with pytest.raises(NotImplementedError, match="row_sharding"):
         StreamingBatcher(engine(), params, prompt_width=5, row_sharding=object())
     sb = StreamingBatcher(engine(), params, batch=2, prompt_width=5)
     with pytest.raises(ValueError, match="bucket"):
         sb.submit(list(range(6)))
-    with pytest.raises(NotImplementedError, match="embed_dim"):
+    with pytest.raises(ValueError, match="prompt_ids"):
         sb.submit([1], prompt_embeds=np.zeros((1, 8), np.float32))
     sb.close()
     with pytest.raises(RuntimeError, match="closed"):

@@ -77,6 +77,62 @@ def test_forward_matches_jax_prefill_then_window(base, kv_quant):
                 np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["fp_cache", "int8_cache"])
+def test_forward_from_embeddings_with_2d_rope_matches_jax(kv_quant):
+    """A LlamaGen-shaped prefill whose rows enter as embeddings (a 3-row
+    condition prefix, the 2-D table's zero-angle rows), then a window of ids
+    at grid positions: logits and caches as the JAX forward's."""
+    jcfg = dataclasses.replace(TINY, num_kv_heads=4, rope_style="2d", rope_2d_cls_len=3,
+                               rope_2d_grid_side=4, kv_quant=kv_quant)
+    cfg = decoder_config_from_jax(jcfg)
+    jparams = jt.init_params(jax.random.PRNGKey(2), jcfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    S, P, W, L = 2, 3, 4, 32
+    rng = np.random.default_rng(1)
+    embeds = rng.standard_normal((S, P, jcfg.hidden_size)).astype(np.float32)
+    window = rng.integers(0, jcfg.vocab_size, (S, W)).astype(np.int32)
+    valid = np.ones((S, L), bool)
+    valid[0, :1] = False  # a masked condition row
+    pos_p = np.maximum(np.cumsum(valid[:, :P], 1) - 1, 0).astype(np.int32)
+    pos_w = (pos_p[:, -1:] + 1 + np.arange(W)).astype(np.int32)
+    jrope, rope = jt.make_rope_table(jcfg, 64), pt.make_rope_table(cfg, 64, device="cpu")
+    jkv, kv = jt.init_kv_cache(jcfg, S, L), pt.init_kv_cache(cfg, S, L, device="cpu")
+    placeholder = np.zeros((S, P), np.int32)
+    for ids, pos, end, emb in ((placeholder, pos_p, 0, embeds), (window, pos_w, P, None)):
+        ce = np.full((S,), end, np.int32)
+        jout = jt.forward(jparams, jcfg, jnp.asarray(ids), jnp.asarray(pos), jkv,
+                          jnp.asarray(ce), jnp.asarray(valid), jrope,
+                          inputs_embeds=None if emb is None else jnp.asarray(emb))
+        out = pt.forward(params, cfg, torch.from_numpy(ids), torch.from_numpy(pos), kv,
+                         torch.from_numpy(ce), torch.from_numpy(valid), rope,
+                         inputs_embeds=None if emb is None else torch.from_numpy(emb))
+        jkv, kv = jout.kv, out.kv
+        np.testing.assert_allclose(out.logits.numpy(), np.asarray(jout.logits),
+                                   rtol=1e-4, atol=1e-4)
+        got, want = _kv_np(kv), _kv_np(jkv)
+        if kv_quant:
+            assert np.abs(got[0] - want[0]).max() <= 1 and np.abs(got[1] - want[1]).max() <= 1
+        else:
+            for g, w in zip(got[:2], want[:2]):
+                np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_decoder_config_from_jax_refuses_a_field_it_would_drop():
+    """A JAX DecoderConfig field with no counterpart in the port passes only
+    at its default; the 2-D RoPE fields are carried over; attn_impl, which
+    names TPU paths, is not."""
+    jcfg = dataclasses.replace(TINY, rope_style="2d", rope_2d_cls_len=3, rope_2d_grid_side=5)
+    cfg = decoder_config_from_jax(jcfg)
+    assert (cfg.rope_style, cfg.rope_2d_cls_len, cfg.rope_2d_grid_side) == ("2d", 3, 5)
+    lacking = ({f.name for f in dataclasses.fields(jt.DecoderConfig)}
+               - {f.name for f in dataclasses.fields(pt.DecoderConfig)})
+    assert lacking == {"attn_buckets"}
+    with pytest.raises(ValueError, match="attn_buckets"):
+        decoder_config_from_jax(dataclasses.replace(jcfg, attn_buckets=8))
+    assert decoder_config_from_jax(dataclasses.replace(jcfg, attn_impl="xla")).attn_impl == "auto"
+    assert decoder_config_from_jax(jcfg, attn_impl="plain").attn_impl == "plain"
+
+
 @pytest.mark.parametrize("rank", [5, 4], ids=["kv_rows", "scales"])
 def test_write_kv_layer_clamps_as_dynamic_update_slice(rank):
     """write_kv_layer against the JAX package's on a stacked [S, NL, L, H(, D)]
