@@ -129,7 +129,34 @@ and LlamaGen GPT-XL (20 heads of 64, 36 layers, 2-D RoPE, bf16 cache):
                kernel forward (K1 at d 1280) within 5%, one image of class
                207 at 256px with every kernel's launches per forward.
 
-Each of the paths 6-8, 10-11, 14-17, 19-22 and 24-28 starts from kernel launch counts of 0 and
+and the decode options, and LlamaGen GPT-3B (32 heads of 100, 24 layers):
+
+  9b. ar_fast_path - lumina_engine(ar_fast_path=True) on the bf16 7B at
+               768px against the default engine, in turns (wide, fast,
+               fast, wide) from the same seed: the replays of each graph,
+               the ms per forward of each width, the whole-image seconds,
+               the count of equal tokens;
+  9c. decompose - sequential_decompose on one window of the 7B's logits,
+               24 steps into the image, against a per-token loop of
+               apply_grammar_single + update_state;
+  12b. ar_fast_path_w4a16 - 9b on the W4A16 7B at 256px, greedy, once
+               each: the tokens, NFE and accept_hist held equal;
+  21b. emu3_understand_chunked - phase 21's 8318-row prefill with and
+               without attn_buckets=512: seconds, peak memory, the first
+               answer logits within 5% of the unchunked run's;
+  3e. epilogue_llamagen_3b, attention_llamagen_3b - both TPU kernels at
+               GPT-3B's shapes over the 384px c2i image's 1024-row buffer,
+               bf16 and int8 (attention fills 150, 400, 600);
+  29. llamagen_3b_load, llamagen_3b_graph - load_llamagen(name="GPT-3B",
+               latent_size=24, model_type="c2i") at full width and depth on
+               random bf16 weights, and phase 6's check of 32 replayed
+               steps from the class embedding;
+  30. llamagen_3b_c2i - one class-207 image at 384px: 576 tokens, each TPU
+               kernel 24 times per forward;
+  31. llamagen_3b_options - the same with init="sample_horizon" and
+               top_p=0.95.
+
+Each of the paths 6-8, 9b, 10-11, 12b, 14-17, 19-22 and 24-31 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -709,6 +736,15 @@ def phase_quant_forward(dev):
 
 
 PROMPT = "a photo of a red fox in the snow"
+
+
+def lumina_ids(size: int) -> list:
+    """A Lumina prompt for a ``size`` px image: 12 text ids, then
+    <image_start> and the two size tokens the grammar arms its grid from."""
+    from sjd_tpu_torch.data.item_processor import size_token_id
+    from sjd_tpu_torch.models.chameleon import IMAGE_START_ID
+
+    return list(range(9000, 9012)) + [IMAGE_START_ID, size_token_id(size), size_token_id(size)]
 
 
 def phase_load(dev, quantize=False, label: str = "load"):
@@ -2317,6 +2353,423 @@ def phase_llamagen_c2i(dev):
     return launches
 
 
+# LlamaGen GPT-3B c2i at 384px: 32 heads of 100 (MHA), 24 layers, one class
+# row and a 24 x 24 grid (576 tokens), bf16 weights and cache; the engine's
+# buffer, 1 + 576 + 2 x 16 rows and the window's, rounded up to 512
+LLAMAGEN_3B_HEADS = dict(H=32, Hkv=32, NL=24, layer=23, D=100)
+LLAMAGEN_3B_L = 1024
+LLAMAGEN_3B_CLASS = 207
+
+
+def _llamagen_3b_engine(dev, cfg, **kw):
+    from sjd_tpu_torch.models.llamagen import llamagen_engine
+
+    return llamagen_engine(name="GPT-3B", latent_size=24, cls_token_num=1, model_cfg=cfg,
+                           device=dev, **kw)
+
+
+def _kernel_row(row: dict, **fields) -> dict:
+    """A kernel case's entry of the ``kernels`` line."""
+    keep = ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
+    return dict(fields, **{k: row[k] for k in keep}, library_ms=row.get("library_ms"))
+
+
+def phase_epilogue_llamagen_3b(dev):
+    """The epilogue at GPT-3B's shapes (heads of 100, no qk-norm: the
+    kernel's lane mapping for D % 64 != 0) into the 384px c2i buffer's last
+    layer, on the 2-D table's rows (cls 1, grid 24): bf16 at fills (600, 1)
+    and (150, 400), int8 at (600, 1). Returns the kernel's row (bf16,
+    (600, 1))."""
+    import torch
+
+    from sjd_tpu_torch.models.llamagen import llamagen_config
+    from sjd_tpu_torch.models.transformer import make_rope_table
+
+    table = make_rope_table(llamagen_config("GPT-3B", block_size=576, cls_token_num=1),
+                            LLAMAGEN_3B_L, device=dev)
+    rows = []
+    for kind, ends in (("bf16", (600, 1)), ("bf16", (150, 400)), ("int8", (600, 1))):
+        pos = torch.tensor(ends, device=dev)[:, None] + torch.arange(16, device=dev)
+        rope = (table[pos, 0].contiguous(), table[pos, 1].contiguous())
+        rows.append(_epilogue_case(dev, "llamagen_3b", 2, LLAMAGEN_3B_L, ends, 50 + len(rows),
+                                   qk_norm=False, quantize=kind == "int8", rope=rope,
+                                   **LLAMAGEN_3B_HEADS))
+    return _kernel_row(rows[0], name="fused_epilogue", case="llamagen_3b", route="cuda",
+                       source="sjd_tpu_torch/csrc/fused_epilogue.cu",
+                       replaces="sjd_tpu/ops/fused_epilogue.py:35",
+                       max_abs_err=max(max(r["max_abs_err"].values()) for r in rows))
+
+
+def phase_attention_llamagen_3b(dev):
+    """The attention at GPT-3B's shapes (MHA, 32 heads of 100: 200-byte bf16
+    and 100-byte int8 head rows, padded to 128 columns in shared memory)
+    over the 384px c2i buffer at fills 150, 400 and 600 (the image's last
+    window), bf16 (the main path's cache) and int8. Returns the kernel's
+    row (bf16, fill 600)."""
+    import torch
+
+    valid = torch.ones((2, LLAMAGEN_3B_L), dtype=torch.bool, device=dev)
+    att = _attention_cases(dev, "llamagen_3b", 2, LLAMAGEN_3B_L, valid,
+                           [(f, f) for f in (150, 400, 600)], ("bf16", "int8"), 51,
+                           **LLAMAGEN_3B_HEADS)
+    main = next(r for r in att if r["cache"] == "bf16" and r["fill"][0] == 600)
+    return _kernel_row(main, name="decode_attention", case="llamagen_3b", route="cuda",
+                       source="sjd_tpu_torch/csrc/decode_attention.cu",
+                       replaces="sjd_tpu/ops/decode_attention.py:38",
+                       max_abs_err=max(r["max_abs_err"] for r in att))
+
+
+def phase_llamagen_3b_load(dev):
+    """LlamaGen GPT-3B c2i at 384px through load_llamagen at full width and
+    depth on seeded random weights: 24 layers, d 3200, 32 heads of 100, ff
+    8704, vocab 16384, the 2-D RoPE over one class row and a 24 x 24 grid,
+    bf16 weights and cache, the class table and the VQ-16 decoder."""
+    import torch
+
+    from sjd_tpu_torch.loader import load_llamagen
+    from sjd_tpu_torch.models.transformer import weight_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = load_llamagen(name="GPT-3B", latent_size=24, model_type="c2i", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    cfg = model.engine.model_cfg
+    emit("llamagen_3b_load", seconds=load_s, layers=cfg.num_layers, hidden=cfg.hidden_size,
+         ff=cfg.intermediate_size, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.head_dim, vocab=cfg.vocab_size, rope_style=cfg.rope_style,
+         rope_2d=[cfg.rope_2d_cls_len, cfg.rope_2d_grid_side], kv_quant=cfg.kv_quant,
+         weight_dtype=str(model.params["layers"]["wq"].dtype),
+         weight_bytes=weight_bytes(model.params),
+         vq_bytes=weight_bytes(model.extras["vq_params"]),
+         cond_bytes=weight_bytes({k: v for k, v in model.extras["cond"].items()
+                                  if k != "kind"}),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         smoke_reasons=model.extras["smoke_reasons"])
+    check((cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size, cfg.rope_style,
+           cfg.rope_2d_cls_len, cfg.rope_2d_grid_side, cfg.kv_quant, cfg.attn_impl)
+          == (24, 3200, 8704, 32, 32, 100, 16384, "2d", 1, 24, False, "auto"),
+          f"not the GPT-3B 384px c2i config: {cfg}")
+    check(model.params["layers"]["wq"].dtype == torch.bfloat16, "not bf16 weights")
+    return model
+
+
+def _llamagen_3b_image(dev, model, eng, label: str, seed: int = 0, **fields):
+    """One class-207 image on ``eng`` from launch counts of 0: its tokens
+    (576, in the VQ-16 codebook), the uint8 (384, 384, 3) image, NFE, ms per
+    forward, seconds, peak memory and each kernel's launches per forward
+    (the one-row prefill takes the kernels too). Returns the launches."""
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.models.llamagen import VOCAB_SIZE
+    from sjd_tpu_torch.ops import launch_counts
+
+    cfg = eng.model_cfg
+    table = per_forward(model.params, cfg)
+    pe, ne, mask = model.extras["embed_prompt_fn"](LLAMAGEN_3B_CLASS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    t0 = time.time()
+    res = eng.generate(model.params, seed, prompt_embeds=pe, neg_prompt_embeds=ne,
+                       prompt_mask=mask)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    launches = eng.stats.executed(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    toks = res.tokens[0, :int(res.length[0])].tolist()
+    t0 = time.time()
+    img = model.extras["decode_image_fn"](toks)
+    torch.cuda.synchronize()
+    vq_s = time.time() - t0
+    nfe, gen = int(res.nfe), toks[1:]
+    kv_rows = eng._state.kv.k.shape[2]
+    emit(label, size=384, label=LLAMAGEN_3B_CLASS, tokens_generated=int(res.gen_count[0]),
+         nfe=nfe, tokens_per_forward=int(res.gen_count[0]) / nfe,
+         accept_hist=res.accept_hist.tolist(), generate_s=gen_s, vq_decode_s=vq_s,
+         wall_s=gen_s + vq_s, ms_per_forward=1e3 * gen_s / nfe, peak_mem_gb=peak,
+         kv_buffer_rows=kv_rows, kv_dtype=str(eng._state.kv.k.dtype),
+         image_shape=list(img.shape), image_dtype=str(img.dtype), launches=launches,
+         launches_expected={k: v * nfe for k, v in table.items()},
+         captures=eng.stats.captures, graph_replays=eng.stats.replays,
+         eager_steps=eng.stats.eager_steps, **fields)
+    check(tuple(img.shape) == (384, 384, 3) and str(img.dtype) == "uint8",
+          f"image is {img.shape} {img.dtype}")
+    check(len(gen) == 576 and int(res.gen_count[0]) == 576
+          and all(0 <= t < VOCAB_SIZE for t in gen), f"{len(gen)} image tokens")
+    check(kv_rows == LLAMAGEN_3B_L and eng._state.kv.k_scale is None,
+          f"the KV buffer has {kv_rows} rows (the kernel phases {LLAMAGEN_3B_L}), "
+          f"{eng._state.kv.k.dtype}")
+    check(eng.stats.captures >= 1 and eng.stats.replays > 0, f"graph path idle: {eng.stats}")
+    for name, k in launches.items():
+        check(k > 0 or table[name] == 0, f"{name} was never launched on the {label} path")
+        check(k == table[name] * nfe, f"{name}: {k} launches in {label} for {nfe} forwards, "
+                                      f"not {table[name] * nfe}")
+    return launches
+
+
+def phase_llamagen_3b_c2i(dev, model):
+    """One class-207 image at 384px through the loader's engine on the graph
+    path (CFG 7.5 against the unconditional class, window 16, top-k 1000):
+    both TPU kernels 24 times per forward at heads of 100."""
+    return _llamagen_3b_image(dev, model, model.engine, "llamagen_3b_c2i")
+
+
+def phase_llamagen_3b_options(dev, model):
+    """The same model through an engine with the decode options the port
+    took last: init="sample_horizon" (the draft seeds from the argmax of
+    the carried distributions) and top_p=0.95 (the nucleus filter inside the
+    captured step). A valid image, with its NFE and accept_hist."""
+    eng = _llamagen_3b_engine(dev, model.engine.model_cfg, init="sample_horizon", top_p=0.95)
+    check(eng.sampling.top_p == 0.95 and eng.config.init == "sample_horizon",
+          "the options did not reach the engine")
+    _llamagen_3b_image(dev, model, eng, "llamagen_3b_options", init=eng.config.init,
+                       top_p=eng.sampling.top_p)
+    del eng
+
+
+def _image_by_width(eng, params, ids, seed: int = 0, chunk: int = 32) -> dict:
+    """One image on ``eng`` in resume calls of ``chunk`` steps, each timed
+    to its synchronize; a call whose steps all replayed one width's graph
+    (no warm-up step, no capture) counts toward that width's ms per
+    forward. Returns the result, the whole wall, the ms per forward by
+    width and the replays by width."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, st = eng.generate(params, seed, ids, max_steps=1, return_state=True)
+    spent: dict = {}
+    while not bool(st.finished.all()):
+        stats = eng.stats
+        before = (dict(stats.replays_by_width), stats.eager_steps, stats.captures)
+        t = time.perf_counter()
+        res, st = eng.resume(params, st, max_steps=chunk, return_state=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        grew = {w: n - before[0].get(w, 0) for w, n in stats.replays_by_width.items()
+                if n > before[0].get(w, 0)}
+        if len(grew) == 1 and (stats.eager_steps, stats.captures) == before[1:]:
+            (w, n), = grew.items()
+            secs, steps = spent.get(w, (0.0, 0))
+            spent[w] = (secs + dt, steps + n)
+    wall = time.perf_counter() - t0
+    return dict(result=res, wall_s=wall, replays_by_width=dict(eng.stats.replays_by_width),
+                captures_by_width=dict(eng.stats.captures_by_width),
+                ms_per_forward_by_width={w: 1e3 * s / n for w, (s, n) in spent.items()},
+                timed_forwards_by_width={w: n for w, (_, n) in spent.items()})
+
+
+def phase_ar_fast_path(dev, model, ids, label: str, size: int = TARGET_SIZE,
+                       greedy: bool = False, hold: bool = False, turns: bool = False):
+    """The 1-token AR fast path on the 7B through lumina_engine's interval
+    (the steps past jacobi_interval_r(size) generated tokens run as width-1
+    forwards): images on the default engine ("wide") and with
+    ar_fast_path=True ("fast"), from the same seed, each from launch counts
+    of 0, in turns wide, fast, fast, wide with ``turns`` (else wide, fast).
+    Reports each graph's replays, the ms per forward of each width and the
+    whole-image seconds; with ``hold`` (greedy, on weights whose products
+    keep a row's result whatever the rows beside it) the first fast run's
+    tokens, NFE and accept_hist must equal the first wide run's, else their
+    count of equal tokens is reported."""
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.models.chameleon import jacobi_interval_r, lumina_engine
+    from sjd_tpu_torch.ops import launch_counts
+
+    cfg = model.engine.model_cfg
+    table = per_forward(model.params, cfg)
+    ids = torch.tensor([ids], dtype=torch.int32, device=dev)
+    runs = {"wide": [], "fast": []}
+    for key in ("wide", "fast", "fast", "wide") if turns else ("wide", "fast"):
+        eng = lumina_engine(target_size=size, model_cfg=cfg, greedy=greedy,
+                            ar_fast_path=key == "fast", device=dev)
+        eng.stats = GraphStats()
+        _zero_launch_counts()
+        run = _image_by_width(eng, model.params, ids)
+        run["launches"] = eng.stats.executed(launch_counts())
+        runs[key].append(run)
+        del eng
+    wide, fast = runs["wide"][0], runs["fast"][0]
+    n = int(max(wide["result"].length[0], fast["result"].length[0]))
+    equal = int((wide["result"].tokens[0, :n] == fast["result"].tokens[0, :n]).sum())
+    out = {}
+    for key, key_runs in runs.items():
+        res = key_runs[0]["result"]
+        out[key] = dict(nfe=int(res.nfe), tokens_generated=int(res.gen_count[0]),
+                        accept_hist=res.accept_hist.tolist(), steps_multi=int(res.steps_multi),
+                        wall_s=[r["wall_s"] for r in key_runs],
+                        ms_per_forward=[1e3 * r["wall_s"] / int(r["result"].nfe)
+                                        for r in key_runs],
+                        ms_per_forward_by_width=[r["ms_per_forward_by_width"] for r in key_runs],
+                        timed_forwards_by_width=[r["timed_forwards_by_width"]
+                                                 for r in key_runs],
+                        replays_by_width=[r["replays_by_width"] for r in key_runs],
+                        captures_by_width=[r["captures_by_width"] for r in key_runs],
+                        launches=[r["launches"] for r in key_runs])
+    mean = {k: statistics.mean(v["wall_s"]) for k, v in out.items()}
+    emit(label, size=size, act_quant=cfg.act_quant,
+         quantized=isinstance(model.params["layers"]["wq"], dict), greedy=greedy,
+         interval_r=jacobi_interval_r(size), window=16, order=list(
+             ("wide", "fast", "fast", "wide") if turns else ("wide", "fast")),
+         tokens_compared=n, equal_tokens=equal, held=hold,
+         wall_vs_wide=mean["fast"] / mean["wide"], **out)
+    for run in runs["fast"]:
+        check(run["captures_by_width"] == {16: 1, 1: 1} and run["replays_by_width"].get(1, 0) > 0,
+              f"the fast path did not replay its width-1 graph: {run['captures_by_width']}, "
+              f"{run['replays_by_width']}")
+    for run in runs["wide"]:
+        check(run["captures_by_width"] == {16: 1}, f"the wide engine: {run['captures_by_width']}")
+    for key, key_runs in runs.items():
+        for run in key_runs:
+            nfe = int(run["result"].nfe)
+            for name, k in run["launches"].items():
+                check(k == table[name] * nfe and (k > 0 or table[name] == 0),
+                      f"{name}: {k} launches in {label} ({key}) for {nfe} forwards")
+    if hold:
+        check(equal == n and out["wide"]["nfe"] == out["fast"]["nfe"]
+              and out["wide"]["accept_hist"] == out["fast"]["accept_hist"],
+              f"the fast path's greedy run differs from the wide path's: {equal} of {n} "
+              f"tokens, NFE {out['wide']['nfe']} and {out['fast']['nfe']}")
+    torch.cuda.empty_cache()
+
+
+def phase_decompose(dev, model, ids):
+    """sequential_decompose on one window of the 7B's logits on the card:
+    a state 24 steps into the 768px image, the window after its last token
+    through the forward (CFG halves), then the rows in order with the
+    grammar advanced by each sampled token. Its greedy tokens must equal a
+    per-token loop of apply_grammar_single + top-k + argmax + update_state
+    over the same CFG-mixed logits."""
+    import torch
+
+    from sjd_tpu_torch.core import grammar as G
+    from sjd_tpu_torch.core import sampling as S
+    from sjd_tpu_torch.core.decomposer import sequential_decompose
+    from sjd_tpu_torch.core.processors import cfg_mix
+    from sjd_tpu_torch.models.chameleon import lumina_engine
+
+    eng = lumina_engine(target_size=TARGET_SIZE, model_cfg=model.engine.model_cfg,
+                        greedy=True, device=dev)
+    params, spec, W = model.params, eng.spec, eng.config.window
+    _, st = eng.generate(params, 0, torch.tensor([ids], dtype=torch.int32, device=dev),
+                         max_steps=24, return_state=True)
+    # the window: the last committed token, then the carried drafts
+    x = torch.cat([st.tokens.gather(1, st.length.long()[:, None] - 1),
+                   st.carried_tokens[:, :W - 1]], dim=1)
+    i = torch.arange(W, device=dev, dtype=torch.int32)[None]
+    pos = (eng._tile(st.length)[:, None] - 1 - st.n_pad[:, None]) + i
+    with torch.no_grad():
+        logits, _ = eng.model.forward(params, eng._tile(x), pos.to(torch.int32), st.kv,
+                                      eng._tile(st.length - 1).to(torch.int32), st.valid)
+    force = ~st.gstate.in_image
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sequential_decompose(None, logits, spec, st.gstate, eng.sampling, greedy=True,
+                               force_no_cfg=force)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    scores = cfg_mix(logits, eng.sampling.guidance_scale, force)
+    g, loop = st.gstate, []
+    one = torch.ones((1,), dtype=torch.int32, device=dev)
+    for r in range(W):
+        s = G.apply_grammar_single(spec, g, scores[:, r], 0 * one)
+        s = S.top_k_dual(s[:, None], g.in_image, eng.sampling.image_top_k,
+                         eng.sampling.text_top_k)[:, 0]
+        tok = torch.argmax(torch.softmax(s, -1), -1).to(torch.int32)
+        g = G.update_state(spec, g, tok[:, None], one)
+        loop.append(tok)
+    loop = torch.stack(loop, 1)
+    o = int(st.gstate.img_count[0])
+    w1 = int(st.gstate.w_lat[0]) + 1
+    emit("decompose", window=W, img_count=o, row_width=w1,
+         eol_rows=[r for r in range(W) if (o + r + 1) % w1 == 0],
+         tokens=res.tokens[0].tolist(), loop_tokens=loop[0].tolist(), seconds=secs,
+         equal=bool(torch.equal(res.tokens, loop)),
+         gstate_equal=all(torch.equal(a, b) for a, b in zip(res.gstate, g)))
+    check(torch.equal(res.tokens, loop) and all(torch.equal(a, b)
+                                                for a, b in zip(res.gstate, g)),
+          "sequential_decompose differs from the per-token loop")
+    check(bool(st.gstate.in_image[0]) and bool(torch.isfinite(logits).all()),
+          "the window is not inside the image")
+    del eng, st
+    torch.cuda.empty_cache()
+
+
+def phase_emu3_understand_chunked(dev, model, chunk: int = 512):
+    """The understanding prefill of phase_emu3_understand (the 720px
+    image's codes and the chat text in the 8318-row left-padded bucket, on
+    the plain path) twice on the W4A16 8B: with the whole-buffer attention
+    (blocks of ATTEND_BLOCK_ROWS query rows against the 8704-row buffer)
+    and with attn_buckets=``chunk`` (each block reads the 512-row chunks up
+    to its causal edge). Seconds and peak memory of each; the answer's
+    first-token logits within phase_forward's bf16 tolerance (5% of the
+    largest logit) of the unchunked run, and the same argmax."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.data.emu3_processor import build_understanding_prompt
+    from sjd_tpu_torch.models.adapter import decoder_model_fns
+    from sjd_tpu_torch.models.emu3 import PAD_ID
+    from sjd_tpu_torch.models.transformer import ATTEND_BLOCK_ROWS
+    from sjd_tpu_torch.models.vq.emu3_vq import encode as emu3_encode
+
+    g = EMU3_GRID
+    yy, xx = np.mgrid[0:8 * g, 0:8 * g] / (8 * g)
+    img = np.stack([np.sin(6 * xx), np.cos(5 * yy), xx * yy * 2 - 1], -1).astype(np.float32)
+    vq, vq_cfg = model.extras["vq_params"], model.extras["vq_cfg"]
+    with torch.no_grad():
+        grid = emu3_encode(vq, vq_cfg, torch.from_numpy(img[None]).to(dev))[0].cpu().numpy()
+    ids = build_understanding_prompt("describe this picture", grid.astype(np.int32),
+                                     lambda s: list(Emu3Tok().encode(s)))
+    bucket = g * (g + 1) + 128
+    pad = bucket - len(ids)
+    prompt = torch.tensor([[PAD_ID] * pad + ids], dtype=torch.int32, device=dev)
+    mask = torch.tensor([[False] * pad + [True] * len(ids)], device=dev)
+    # the understanding engine's buffer: the bucket, 32 answer tokens and two
+    # windows, then the window's rows, rounded up to 512
+    rows = ((bucket + 32 + 2 * 16 + 16 + 1 + 511) // 512) * 512
+    valid = torch.ones((1, rows), dtype=torch.bool, device=dev)
+    valid[:, :bucket] = mask
+    pos = torch.clamp_min(torch.cumsum(mask.int(), 1) - 1, 0).to(torch.int32)
+    out = {}
+    for buckets in (0, chunk):
+        cfg = dataclasses.replace(model.engine.model_cfg, attn_buckets=buckets)
+        fns = decoder_model_fns(cfg, max_positions=bucket + 64, device=dev)
+        kv = fns.init_cache(1, rows)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = fns.forward(model.params, prompt, pos, kv,
+                                    torch.zeros((1,), dtype=torch.int32, device=dev), valid,
+                                    logits_tail=1)
+        torch.cuda.synchronize()
+        out[buckets] = dict(seconds=time.perf_counter() - t0, held_gb=held,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                            logits=logits[0, -1].float())
+        del kv, fns
+        torch.cuda.empty_cache()
+    a, b = out[chunk]["logits"], out[0]["logits"]
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    ok = math.isfinite(err) and err <= 0.05 * scale and int(a.argmax()) == int(b.argmax())
+    emit("emu3_understand_chunked", prompt_bucket=bucket, buffer_rows=rows,
+         block_rows=ATTEND_BLOCK_ROWS, attn_buckets=chunk,
+         seconds={k: v["seconds"] for k, v in out.items()},
+         peak_mem_gb={k: v["peak_gb"] for k, v in out.items()},
+         held_before_gb={k: v["held_gb"] for k, v in out.items()},
+         max_abs_err=err, max_abs_logit=scale, tolerance=0.05 * scale,
+         argmax_equal=int(a.argmax()) == int(b.argmax()), ok=ok)
+    check(ok, f"the chunked prefill's logits differ from the unchunked ones: {err} of {scale}")
+    check(rows % chunk == 0, f"{chunk} does not divide the {rows}-row buffer")
+
+
 def main() -> int:
     try:
         import torch
@@ -2343,6 +2796,7 @@ def main() -> int:
     kernels += phase_quant_kernels(dev)
     kernels += [phase_epilogue_emu3(dev), phase_attention_emu3(dev)]
     kernels += [phase_epilogue_llamagen(dev), phase_attention_llamagen(dev)]
+    kernels += [phase_epilogue_llamagen_3b(dev), phase_attention_llamagen_3b(dev)]
     phase_forward(dev)
     phase_quant_forward(dev)
     model = phase_load(dev)
@@ -2352,6 +2806,8 @@ def main() -> int:
     launches = phase_generate(dev, model)
     phase_serve(dev, model)
     phase_widths(dev, model.params, cfg, "widths_bf16", hold=False)
+    phase_ar_fast_path(dev, model, ids, "ar_fast_path", turns=True)
+    phase_decompose(dev, model, ids)
     # W4A8 with the int8 embedding, quantized on the card from the bf16
     # weights (no second draw), as load_lumina_mgpt(quantize="w4a8",
     # embed_bits=8) would hold them
@@ -2369,6 +2825,8 @@ def main() -> int:
     phase_graph(dev, qmodel.params, qcfg, ids, label="quant_graph")
     a16 = phase_generate(dev, qmodel, label="quant_generate")
     phase_widths(dev, qmodel.params, qcfg, "widths_w4a16", hold=True)
+    phase_ar_fast_path(dev, qmodel, lumina_ids(256), "ar_fast_path_w4a16", size=256,
+                       greedy=True, hold=True)
     del qmodel
     gc.collect()
     torch.cuda.empty_cache()
@@ -2400,6 +2858,7 @@ def main() -> int:
                                                       init="repeat_horizon", device=dev))
     e_launches = phase_emu3_generate(dev, emodel)
     phase_emu3_understand(dev, emodel)
+    phase_emu3_understand_chunked(dev, emodel)
     del emodel
     gc.collect()
     torch.cuda.empty_cache()
@@ -2424,9 +2883,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_llamagen_c2i(dev)
+    # LlamaGen GPT-3B c2i at 384px: heads of 100 through both kernels
+    m3 = phase_llamagen_3b_load(dev)
+    m3cfg = m3.engine.model_cfg
+    pe, ne, mask = m3.extras["embed_prompt_fn"](LLAMAGEN_3B_CLASS)
+    phase_graph(dev, m3.params, m3cfg, None, label="llamagen_3b_graph",
+                embeds=dict(prompt_embeds=pe, neg_prompt_embeds=ne, prompt_mask=mask),
+                make_engine=lambda graph: _llamagen_3b_engine(dev, m3cfg, cuda_graph=graph))
+    l3_launches = phase_llamagen_3b_c2i(dev, m3)
+    phase_llamagen_3b_options(dev, m3)
+    del m3
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_case = {"emu3": e_launches, "llamagen": l_launches, "llamagen_3b": l3_launches}
     for k in kernels:
-        if k.get("case") in ("emu3", "llamagen"):
-            k["launches"] = (e_launches if k["case"] == "emu3" else l_launches)[k["name"]]
+        if k.get("case") in by_case:
+            k["launches"] = by_case[k["case"]][k["name"]]
             continue
         k["launches"] = {"quant_linear_a16": a16, "quant_linear_a8": a8}.get(
             k["name"], launches)[k["name"]]

@@ -4,8 +4,11 @@
 Window layout (width W): slot 0 is the last committed token; slots 1..W-1
 are drafts, first the carried unaccepted model samples of the previous
 step, then fresh seeds. Fresh-seed schemes: ``random`` (uniform over the
-image vocab, one-hot draft dist) and ``repeat_horizon`` (copy the token one
-grid row up when it is available). ``sample_horizon`` is not ported yet.
+image vocab, one-hot draft dist), ``repeat_horizon`` (a slot at grid
+column >= 1 copies the token at the previous flattened grid index, clamped
+to the last carried or committed one) and ``sample_horizon`` (the same
+indexing, but the seed is the argmax of the recorded distribution there:
+the reference's top-1-restricted multinomial).
 
 The fresh random seeds ``rand`` are an input: the caller draws them per
 slot, in ``draft_range(spec, V)``.
@@ -60,12 +63,18 @@ def build_window(
 
     d = torch.arange(W - 1, device=tokens.device)[None, :]
     lo, hi = draft_range(spec, V)
-    if scheme == "repeat_horizon":
+    if scheme in ("repeat_horizon", "sample_horizon"):
         cc = carried_count.long()[:, None]
         src = torch.minimum(torch.clamp_min(d - 1, 0), torch.clamp_min(cc - 1, 0))
-        from_carried = torch.gather(carried_tokens, 1, src)
         have_carried = (cc > 0) & (d >= 1)
-        seed_tok = torch.where(have_carried, from_carried, last_tok)
+        if scheme == "repeat_horizon":
+            seed_tok = torch.where(have_carried, torch.gather(carried_tokens, 1, src), last_tok)
+        else:
+            # the argmax of the recorded distribution, also in the fallback
+            # to the last committed token: not the token sampled from it
+            carried_seed = torch.argmax(carried_probs, dim=-1)  # [B, W]
+            seed_tok = torch.where(have_carried, torch.gather(carried_seed, 1, src),
+                                   torch.argmax(last_prob, dim=-1)[:, None])
         o = gstate.img_count[:, None] + d
         w1 = torch.clamp_min(gstate.w_lat[:, None] + 1, 1)
         col = torch.remainder(o + 1, w1)
@@ -73,7 +82,7 @@ def build_window(
                     & (seed_tok >= lo) & (seed_tok <= hi))
         rand = torch.where(use_seed, seed_tok.to(rand.dtype), rand)
     elif scheme != "random":
-        raise ValueError(f"draft init {scheme!r} is not ported")
+        raise ValueError(f"unknown draft init {scheme!r}")
     rand_probs = onehot_probs(rand, V)
 
     in_carry = d < carried_count[:, None]

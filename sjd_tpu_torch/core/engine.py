@@ -41,8 +41,18 @@ generator without a recapture.
 A prompt enters as token ids or, for LlamaGen's conditioning prefix, as
 embeddings (``prompt_embeds``, with zero placeholder ids of the same width
 in the token buffer); only the prefill reads them, so the decode step and
-its graph are the same either way. The 1-token AR fast path is not ported
-yet.
+its graph are the same either way.
+
+``ar_fast_path=True`` runs the steps where no live slot is inside
+``[interval_l, interval_r)`` as width-1 forwards (the JAX engine's
+``lax.cond`` between the two step widths). The state keeps its full-width
+shapes; on CUDA the width-1 step is a second captured graph over the same
+state tensors, in the same memory pool as the first. The step writes
+``finished.all()`` and ``any_multi`` of the next step into ``flags``, which
+the host reads in one copy after each step (the default path reads it too)
+and replays one graph or the other. A step of either width draws the
+full-width random inputs and reads their first rows, so a slot's
+generator advances the same way on both.
 """
 
 from __future__ import annotations
@@ -122,6 +132,10 @@ class EngineState:
     prompt_len: Tensor  # [B] real prompt length
     prompt_rows: int  # padded prompt rows in `tokens`
     accept_hist: Tensor  # [W+1] int32: decode steps by accepted length
+    # [2] int32 for the next step: every slot finished; a live slot inside
+    # [interval_l, interval_r). The step writes them, the host reads both in
+    # one copy
+    flags: Tensor
 
 
 # the EngineState tensors with one row per slot (refill selects them per slot)
@@ -159,6 +173,10 @@ class GraphStats:
     capture_s: float = 0.0  # wall seconds inside captures
     replays: int = 0
     eager_steps: int = 0  # decode steps run eagerly (warm-up, CPU, cuda_graph=False)
+    # the same, by step width (the window, and 1 on the AR fast path)
+    captures_by_width: Dict[int, int] = dataclasses.field(default_factory=dict)
+    replays_by_width: Dict[int, int] = dataclasses.field(default_factory=dict)
+    eager_by_width: Dict[int, int] = dataclasses.field(default_factory=dict)
     captured_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
     replayed_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
@@ -174,7 +192,7 @@ class _Graph(NamedTuple):
     launches: Dict[str, int]  # kernel launches one replay runs
 
 
-def _add(into: Dict[str, int], counts: Dict[str, int], times: int = 1) -> None:
+def _add(into: Dict, counts: Dict, times: int = 1) -> None:
     for k, n in counts.items():
         into[k] = into.get(k, 0) + times * n
 
@@ -203,10 +221,12 @@ class SJDEngine:
     def __init__(self, model: ModelFns, config: EngineConfig,
                  grammar_spec: grammar_lib.GrammarSpec,
                  sampling_params: processors_lib.SamplingParams,
-                 *, cuda_graph: bool = True):
+                 *, cuda_graph: bool = True, ar_fast_path: bool = False):
         """``cuda_graph``: on CUDA, replay a captured graph of the decode
         step (the default) or run every step eagerly (False). The CPU always
-        runs eagerly."""
+        runs eagerly. ``ar_fast_path``: width-1 forwards for the steps where
+        no live slot is inside the SJD interval (module docstring); off by
+        default, as in the JAX engine."""
         if config.scheme not in ("speculative_jacobi", "jacobi"):
             raise ValueError(f"unknown scheme {config.scheme!r}")
         self.model = model
@@ -216,10 +236,12 @@ class SJDEngine:
                   and sampling_params.guidance_scale != 1.0)
         self.sampling = dataclasses.replace(sampling_params, do_cfg=do_cfg)
         self.cuda_graph = cuda_graph
+        self.ar_fast_path = ar_fast_path
         self.stats = GraphStats()
         self._state: Optional[EngineState] = None  # reused while the shape holds
-        self._graph: Optional[_Graph] = None  # captured over self._state
-        self._warm = False  # the warm-up step ran on self._state
+        self._graphs: Dict[int, _Graph] = {}  # by step width, captured over self._state
+        self._warm: set = set()  # the widths whose warm-up step ran on self._state
+        self._pool = None  # the graphs' shared memory pool
         self._stream = None  # the side stream of warm-up and capture
         # batch -> GrammarState, for generate/refill calls that pass no
         # gstate; a family whose grammar needs a pre-armed state (Emu3's
@@ -469,7 +491,7 @@ class SJDEngine:
             else:
                 # another shape: release the old state and its graph before
                 # the new cache is allocated
-                self._state, self._graph, self._warm = None, None, False
+                self._state, self._graphs, self._warm = None, {}, set()
 
         if neg_cfg:
             Pc = max(P, neg_prompt.shape[1])
@@ -544,6 +566,7 @@ class SJDEngine:
             prompt_len=prompt_len,
             prompt_rows=P,
             accept_hist=torch.zeros((W + 1,), dtype=torch.int32, device=dev),
+            flags=torch.zeros((2,), dtype=torch.int32, device=dev),
         )
         if kv_buf_rows is not None:
             return fresh
@@ -593,24 +616,33 @@ class SJDEngine:
 
     def _run(self, params, st: EngineState, cap: int) -> None:
         """Decode steps while a slot is live and the NFE is under ``cap``
-        (the JAX while_loop's condition, checked on the host)."""
+        (the JAX while_loop's condition, checked on the host); on the AR
+        fast path the same read also picks each step's width."""
         self._check_own(st)
         graph = self.cuda_graph and st.tokens.is_cuda
-        while st.nfe < cap and not bool(st.finished.all()):
+        W = self.config.window
+        fast = self.ar_fast_path and W > 1
+        self._write_flags(st)  # a prefill or a refill changed the slots
+        while st.nfe < cap:
+            done, multi = st.flags.tolist()
+            if done:
+                break
+            w = 1 if fast and not multi else W
             if graph:
-                self._graph_step(params, st)
+                self._graph_step(params, st, w)
             else:
-                self._step(params, st)
+                self._step(params, st, w)
                 self.stats.eager_steps += 1
+                _add(self.stats.eager_by_width, {w: 1})
 
     def _check_own(self, st: EngineState) -> None:
         if st is not self._state:
             raise ValueError("this state is no longer the engine's own: a later generate() "
                              "replaced it (keep only the returned state)")
 
-    def _step(self, params, st: EngineState) -> None:
-        """One eager decode step."""
-        self._step_into(params, st, self._draws(st))
+    def _step(self, params, st: EngineState, w: int) -> None:
+        """One eager decode step of width ``w``."""
+        self._step_into(params, st, self._draws(st), w)
         st.nfe += 1
 
     def _side_stream(self):
@@ -618,79 +650,107 @@ class SJDEngine:
             self._stream = torch.cuda.Stream(device=self.device)
         return self._stream
 
-    def _graph_step(self, params, st: EngineState) -> None:
-        """One decode step on CUDA: the warm-up step of a new state eagerly,
-        else a replay of the step's graph (captured first if needed)."""
-        entry = self._graph
+    def _graph_step(self, params, st: EngineState, w: int) -> None:
+        """One decode step of width ``w`` on CUDA: the first step of each
+        width on a new state eagerly (the warm-up), else a replay of that
+        width's graph (captured first if needed)."""
+        entry = self._graphs.get(w)
         if entry is None or entry.params is not params:
-            if not self._warm:
+            if w not in self._warm:
                 side, main = self._side_stream(), torch.cuda.current_stream()
                 side.wait_stream(main)
                 with torch.cuda.stream(side):
-                    self._step(params, st)
+                    self._step(params, st, w)
                 main.wait_stream(side)
-                self._warm = True
+                self._warm.add(w)
                 self.stats.eager_steps += 1
+                _add(self.stats.eager_by_width, {w: 1})
                 return
-            entry = self._capture(params, st)
+            entry = self._capture(params, st, w)
         for buf, new in zip(entry.draws, self._draws(st)):
             if buf is not None:
                 buf.copy_(new)
         entry.graph.replay()
         st.nfe += 1
         self.stats.replays += 1
+        _add(self.stats.replays_by_width, {w: 1})
         _add(self.stats.replayed_launches, entry.launches)
 
-    def _capture(self, params, st: EngineState) -> _Graph:
-        """Capture one decode step over ``st``'s tensors as a CUDA graph. The
+    def _capture(self, params, st: EngineState, w: int) -> _Graph:
+        """Capture one decode step of width ``w`` over ``st``'s tensors as a
+        CUDA graph, in the memory pool the engine's graphs share. The
         capture records and does not run: ``st`` is not advanced."""
         from ..ops import launch_counts
 
-        self._graph = None  # a new params object: release the old graph
+        # a new params object: release the graphs captured with the old one
+        self._graphs = {k: g for k, g in self._graphs.items() if g.params is params}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         draws = self._draw_buffers(st.tokens.shape[0])
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._side_stream()):
-            self._step_into(params, st, draws)
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream()):
+            self._step_into(params, st, draws, w)
         torch.cuda.synchronize()
         self.stats.capture_s += time.perf_counter() - t0
         launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
         self.stats.captures += 1
+        _add(self.stats.captures_by_width, {w: 1})
         _add(self.stats.captured_launches, launches)
         entry = _Graph(graph, params, draws, launches)
-        self._graph = entry
+        self._graphs[w] = entry
         return entry
 
-    def _step_into(self, params, st: EngineState, draws: StepDraws) -> None:
-        """One decode step over the configured window, written in place into
-        ``st``'s tensors (``st.nfe`` is the caller's). Nothing here reads a
-        device value on the host, so the step can be captured."""
+    def _in_interval(self, st: EngineState) -> Tensor:
+        """[B] bool: the slot's next position is inside [interval_l,
+        interval_r) of its generated tokens."""
+        cfg = self.config
+        real_len = st.length - st.n_pad[:st.tokens.shape[0]]
+        return ((real_len >= st.prompt_len + cfg.interval_l)
+                & (real_len < st.prompt_len + cfg.interval_r))
+
+    def _write_flags(self, st: EngineState) -> None:
+        """``st.flags`` from the state as it is: every slot finished, and a
+        live slot inside the interval (the next step's width)."""
+        any_multi = torch.any(self._in_interval(st) & ~st.finished)
+        st.flags.copy_(torch.stack([st.finished.all(), any_multi]))
+
+    def _step_into(self, params, st: EngineState, draws: StepDraws,
+                   w: Optional[int] = None) -> None:
+        """One decode step over a ``w``-wide window (the configured window by
+        default, 1 on the AR fast path), written in place into ``st``'s tensors,
+        which keep their full-window shapes (``st.nfe`` is the caller's).
+        Nothing here reads a device value on the host, so the step can be
+        captured."""
         cfg = self.config
         spec = self.spec
         dev = self.device
         W = cfg.window
+        w = W if w is None else w
         V = self.model.vocab_size
         greedy = self.sampling.greedy
         speculative = cfg.scheme == "speculative_jacobi"
         rand, g_tok, u, g_res = draws
+        rand = rand[:, :w - 1]
+        g_tok = None if g_tok is None else g_tok[:, :w]
+        u = None if u is None else u[:, :w - 1]
         B = st.tokens.shape[0]
 
         real_len = st.length - st.n_pad[:B]
-        lo_i = st.prompt_len + cfg.interval_l
         hi_i = st.prompt_len + cfg.interval_r
-        in_interval = (real_len >= lo_i) & (real_len < hi_i)
-        active_w = torch.where(in_interval, torch.clamp_max(hi_i - real_len, W), 1)
-        active_w = active_w.clamp(1, W).to(torch.int32)
+        in_interval = self._in_interval(st)
+        active_w = torch.where(in_interval, torch.clamp_max(hi_i - real_len, w), 1)
+        active_w = active_w.clamp(1, w).to(torch.int32)
 
         win = drafts_lib.build_window(
             rand, scheme=cfg.init, spec=spec, gstate=st.gstate, tokens=st.tokens,
             length=st.length, last_prob=st.last_prob,
             carried_tokens=st.carried_tokens, carried_probs=st.carried_probs,
-            carried_count=st.carried_count, window=W, vocab_size=V,
+            carried_count=st.carried_count, window=w, vocab_size=V,
             grammar_seed=cfg.grammar_seed)
 
-        i = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+        i = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
         positions = (self._tile(st.length)[:, None] - 1 - st.n_pad[:, None]) + i
         logits, _ = self.model.forward(
             params, self._tile(win.x), positions.to(torch.int32), st.kv,
@@ -728,7 +788,7 @@ class SJDEngine:
         # commit: the whole window at each sample's length (slots past n are
         # overwritten by later commits); the finish guard below keeps every
         # write inside the buffer
-        cols = st.length.long()[:, None] + torch.arange(W, device=dev)[None, :]
+        cols = st.length.long()[:, None] + torch.arange(w, device=dev)[None, :]
         length = st.length + n_eff
         gstate = grammar_lib.update_state(spec, st.gstate, res.out_tokens, n_eff)
         last_prob = acceptance_lib._gather_rows(res.out_probs, res.n - 1)
@@ -744,8 +804,12 @@ class SJDEngine:
         # every input is read: write the step's results into the state
         st.tokens.scatter_(1, cols, res.out_tokens)
         st.length.copy_(length)
-        st.carried_tokens.copy_(res.carried_tokens)
-        st.carried_probs.copy_(res.carried_probs)
+        # a narrow step's carry fills the first w columns, zeros the rest
+        st.carried_tokens[:, :w].copy_(res.carried_tokens)
+        st.carried_probs[:, :w].copy_(res.carried_probs)
+        if w < W:
+            st.carried_tokens[:, w:].zero_()
+            st.carried_probs[:, w:].zero_()
         st.carried_count.copy_(carried_count)
         st.last_prob.copy_(last_prob)
         for dst, src in zip(st.gstate, gstate):
@@ -753,3 +817,4 @@ class SJDEngine:
         st.finished.copy_(finished)
         st.steps_multi.add_(multi)
         st.accept_hist.add_(hist_inc)
+        self._write_flags(st)

@@ -79,6 +79,23 @@ def top_k_dual(scores: Tensor, image_mode: Tensor, image_top_k: int,
     return torch.where(scores < thr[..., None], NEG_INF, scores)
 
 
+def top_p(scores: Tensor, p: float, min_tokens_to_keep: int = 1) -> Tensor:
+    """Nucleus filter over the last axis (sjd_tpu's ``top_p``): sort
+    ascending, take the softmax's running sum, remove the tail whose sum
+    stays <= 1 - p (never the last ``min_tokens_to_keep``), and threshold at
+    the smallest kept score. A sort, a cumsum and a gather: no host read,
+    so the decode step's graph captures it."""
+    sorted_scores = torch.sort(scores, dim=-1).values  # ascending
+    cum = torch.cumsum(torch.softmax(sorted_scores, dim=-1), dim=-1)
+    remove = cum <= (1.0 - p)
+    if min_tokens_to_keep > 0:
+        remove[..., -min_tokens_to_keep:] = False
+    V = scores.shape[-1]
+    n_removed = remove.sum(-1, keepdim=True).clamp_max(V - 1)
+    thr = torch.gather(sorted_scores, -1, n_removed)
+    return torch.where(scores < thr, NEG_INF, scores)
+
+
 def onehot_probs(tokens: Tensor, vocab_size: int) -> Tensor:
     """One-hot 'distribution' at each token (fresh drafts' draft dist). A
     comparison rather than ``F.one_hot``, which checks the ids' range on the

@@ -58,9 +58,22 @@
 //   read. Shared-memory rows are padded (16 bytes for int8, 32 for bf16) so
 //   that the fragment reads hit 32 distinct banks.
 //
+// - D = 100 (LlamaGen GPT-3B). A head row is 200 bytes (bf16) or 100
+//   (int8), so rows are 8- or 4-byte aligned, not 16: the ring copies
+//   them by cp.async.ca 8- or 4-byte copies instead, 25 per row. The
+//   padding is in shared memory, not in the cache (padding the cache to
+//   128 would add 28% to its bytes and change the layout the epilogue
+//   writes): each tile row is laid out as at D = 128, its columns 100..127
+//   zeroed once when the block starts (the copies never write them), and
+//   Q's dims 100..127 are zero in registers. Both products then run as at
+//   D = 128 (the score product's k and the P.V product's n in 128), the
+//   pad dims of the output are zero, and the partials and the merge keep
+//   128 columns, of which the merge writes the first 100.
+//
 // C interface (ctypes): sjd_decode_attention(...) returns cudaGetLastError();
-// sjd_decode_attention_split_rows() returns kSplit, which sizes the caller's
-// scratch.
+// sjd_decode_attention_split_rows() returns kSplit and
+// sjd_decode_attention_partial_dim(D) the columns of a partial row (D, or
+// 128 for D = 100), which size the caller's scratch.
 
 #include <atomic>
 #include <cfloat>
@@ -81,28 +94,48 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kSplit % kTileRows == 0, "a tile never crosses a split");
 
+// the head width the products and the partials run at: D, or D rounded up
+// to 32 (the P.V product's groups of four n-tiles)
+template <int D>
+__host__ __device__ constexpr int padded_dim() {
+  return (D + 31) / 32 * 32;
+}
+
 template <typename KV, int D>
 struct Layout {
   static constexpr bool kQuant = sizeof(KV) == 1;
   static constexpr int kStages = kQuant ? 3 : 2;
-  // one cache row of one head, padded: fragment reads hit distinct banks
-  static constexpr int kStride = D * (int)sizeof(KV) + (kQuant ? 16 : 32);
-  static constexpr int kChunksPerRow = D * (int)sizeof(KV) / 16;
+  static constexpr int kDP = padded_dim<D>();
+  // one cache row of one head as kDP columns, padded: fragment reads hit
+  // distinct banks
+  static constexpr int kStride = kDP * (int)sizeof(KV) + (kQuant ? 16 : 32);
+  // the copies: the widest of 16, 8, 4 bytes that keeps every row aligned
+  static constexpr int kRowBytes = D * (int)sizeof(KV);
+  static constexpr int kCopyBytes = kRowBytes % 16 == 0 ? 16 : kRowBytes % 8 == 0 ? 8 : 4;
+  static constexpr int kChunksPerRow = kRowBytes / kCopyBytes;
   static constexpr int kTileBytes = kTileRows * kStride;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K then V
   static constexpr int kRingBytes = kStages * kStageBytes;
-  static constexpr int kAccStride = D + 4;  // f32, warp merge rows
+  static constexpr int kAccStride = kDP + 4;  // f32, warp merge rows
   static constexpr int kMergeBytes = kWarps * kRows * (kAccStride + 2) * 4;
   static constexpr int kRegion = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
   // then per split row: k scale, v scale (f32), and the valid byte
   static constexpr int kBytes = kRegion + kSplit * 9;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+// an N-byte global -> shared copy, zero-filled past src_bytes (0 or N)
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(N), "r"(src_bytes)
+                 : "memory");
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -151,13 +184,14 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
     const __nv_bfloat16* __restrict__ vs,
     const int32_t* __restrict__ cache_end,    // [S]
     const uint8_t* __restrict__ valid,        // [S, L] (bool)
-    float* __restrict__ part_acc,             // [S, n_split, Hkv, GW, D]
+    float* __restrict__ part_acc,             // [S, n_split, Hkv, GW, kDP]
     float* __restrict__ part_ml,              // [S, n_split, Hkv, GW, 2]
     int W, int H, int Hkv, int NL, int L, int layer, int n_split) {
   using Lay = Layout<KV, D>;
   constexpr int kStages = Lay::kStages;
-  constexpr int kKSteps = D / 16;   // k steps of the score product
-  constexpr int kDGroups = D / 32;  // groups of 4 n-tiles of the P.V product
+  constexpr int kDP = Lay::kDP;
+  constexpr int kKSteps = kDP / 16;   // k steps of the score product
+  constexpr int kDGroups = kDP / 32;  // groups of 4 n-tiles of the P.V product
   extern __shared__ __align__(16) uint8_t smem[];
   float* ksc = reinterpret_cast<float*>(smem + Lay::kRegion);
   float* vsc = ksc + kSplit;
@@ -182,6 +216,16 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
   const int tig = lane & 3;   // thread in group
   const size_t row0 = ((size_t)s * NL + layer) * L;  // cache row of (s, layer, 0)
 
+  if constexpr (kDP != D) {
+    // the pad columns of every ring row, zeroed once: no copy writes them
+    constexpr int kPadWords = (kDP - D) * (int)sizeof(KV) / 4;
+    for (int i = tid; i < kStages * 2 * kTileRows * kPadWords; i += kThreads) {
+      const int r = i / kPadWords;  // ring row: stage, operand, tile row
+      *reinterpret_cast<uint32_t*>(smem + r * Lay::kStride + Lay::kRowBytes +
+                                   4 * (i % kPadWords)) = 0u;
+    }
+  }
+
   // the ring: tile i of the split into stage i % kStages
   auto issue = [&](int tile) {
     uint8_t* stage = smem + (tile % kStages) * Lay::kStageBytes;
@@ -195,9 +239,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
       const int col = t0 + rr;
       const KV* base = which ? v : k;
       // rows past the live edge: a zero-filled copy from a live row
-      const KV* src = base + ((row0 + min(col, c_end - 1)) * Hkv + h) * D + part * (16 / sizeof(KV));
-      cp_async16(stage + which * Lay::kTileBytes + rr * Lay::kStride + part * 16, src,
-                 col < c_end ? 16 : 0);
+      const KV* src = base + ((row0 + min(col, c_end - 1)) * Hkv + h) * D +
+                      part * (Lay::kCopyBytes / sizeof(KV));
+      cp_async<Lay::kCopyBytes>(
+          stage + which * Lay::kTileBytes + rr * Lay::kStride + part * Lay::kCopyBytes, src,
+          col < c_end ? Lay::kCopyBytes : 0);
     }
   };
 #pragma unroll
@@ -237,7 +283,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
       uint2 x = make_uint2(0, 0);
-      if (r < GW) x = *reinterpret_cast<const uint2*>(qrow + kk * 16);
+      // past D (the pad dims): zero, as in the ring's pad columns
+      if (r < GW && (kDP == D || kk * 16 + 4 * tig < D))
+        x = *reinterpret_cast<const uint2*>(qrow + kk * 16);
       qa[kk][half] = x.x;
       qa[kk][2 + half] = x.y;
     }
@@ -245,9 +293,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
 
   float m[2] = {-FLT_MAX, -FLT_MAX};
   float l[2] = {0.f, 0.f};  // this thread's columns only; summed over the quad at the end
-  float acc[D / 8][4];      // n-tile 4G + j: dims 32G + 8t + j (+4 for c1, c3)
+  float acc[kDP / 8][4];    // n-tile 4G + j: dims 32G + 8t + j (+4 for c1, c3)
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < kDP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<kStages - 2>();  // this thread's copies of tile `it` landed
@@ -318,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
       pa[2 * j + 1] = pack_rn(p[2] * vsc[i], p[3] * vsc[i + 1]);
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kDP / 8; ++n) {
       acc[n][0] *= corr[0];
       acc[n][1] *= corr[0];
       acc[n][2] *= corr[1];
@@ -388,7 +436,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
   }
   __syncthreads();
   constexpr int kThreadsPerRow = kThreads / kRows;
-  constexpr int kDimsPerThread = D / kThreadsPerRow;
+  constexpr int kDimsPerThread = kDP / kThreadsPerRow;
   const int r = tid / kThreadsPerRow;
   const int d0 = (tid % kThreadsPerRow) * kDimsPerThread;
   if (r0 + r >= GW) return;
@@ -415,7 +463,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
       o.z += e[w] * a.z;
       o.w += e[w] * a.w;
     }
-    *reinterpret_cast<float4*>(part_acc + prow * D + d0 + d) = o;
+    *reinterpret_cast<float4*>(part_acc + prow * kDP + d0 + d) = o;
   }
   if (d0 == 0) {
     part_ml[prow * 2] = m_star;
@@ -425,13 +473,15 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
 
 // One warp per (sample, KV head, query row): merges the splits that
 // flash_decode_split_kernel wrote (those below ceil(n_live / kSplit)) and
-// writes the bf16 output row. grid: ceil(S * Hkv * GW * 32 / kMergeThreads).
+// writes the bf16 output row's D dims of the partials' kDP.
+// grid: ceil(S * Hkv * GW * 32 / kMergeThreads).
 template <int D>
 __global__ void __launch_bounds__(kMergeThreads) merge_splits_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     const int32_t* __restrict__ cache_end, __nv_bfloat16* __restrict__ out,
     int S, int W, int H, int Hkv, int L, int n_split) {
-  constexpr int kPerLane = D / 32;
+  constexpr int kDP = padded_dim<D>();
+  constexpr int kPerLane = kDP / 32;
   const int group = H / Hkv;
   const int GW = W * group;
   const int item = (blockIdx.x * kMergeThreads + threadIdx.x) >> 5;
@@ -456,13 +506,14 @@ __global__ void __launch_bounds__(kMergeThreads) merge_splits_kernel(
     const float e = exp2f(part_ml[pr * 2] - m_max);
     l = fmaf(e, part_ml[pr * 2 + 1], l);
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) acc[j] = fmaf(e, part_acc[pr * D + lane * kPerLane + j], acc[j]);
+    for (int j = 0; j < kPerLane; ++j) acc[j] = fmaf(e, part_acc[pr * kDP + lane * kPerLane + j], acc[j]);
   }
   const float inv_l = 1.f / fmaxf(l, 1e-37f);
   const int w = r / group, g = r % group;
   __nv_bfloat16* o = out + (((size_t)s * W + w) * H + h * group + g) * D + lane * kPerLane;
 #pragma unroll
-  for (int j = 0; j < kPerLane; ++j) o[j] = __float2bfloat16_rn(acc[j] * inv_l);
+  for (int j = 0; j < kPerLane; ++j)
+    if (kDP == D || lane * kPerLane + j < D) o[j] = __float2bfloat16_rn(acc[j] * inv_l);
 }
 
 // The split kernel's dynamic shared memory is over the 48 KB default; the
@@ -492,7 +543,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   const int n_split = (L + kSplit - 1) / kSplit;
   const int GW = W * (H / Hkv);
   float* part_acc = static_cast<float*>(partials);
-  float* part_ml = part_acc + (size_t)S * n_split * Hkv * GW * D;
+  float* part_ml = part_acc + (size_t)S * n_split * Hkv * GW * padded_dim<D>();
   const dim3 grid((GW + kRows - 1) / kRows, Hkv, S * n_split);
   flash_decode_split_kernel<KV, D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
@@ -512,11 +563,16 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 
 extern "C" int sjd_decode_attention_split_rows() { return kSplit; }
 
+extern "C" int sjd_decode_attention_partial_dim(int D) {
+  return D == 100 ? padded_dim<100>() : D;
+}
+
 // quantized != 0: k/v are int8 with bf16 scales; else k/v are bf16 and the
-// scale pointers are ignored. head_dim must be 64 or 128 (checked by the
-// Python wrapper; anything else returns cudaErrorInvalidValue). q, k and v
-// must be 16-byte aligned. partials: f32 scratch of S * ceil(L / kSplit) *
-// Hkv * W * (H / Hkv) * (D + 2) elements, uninitialised.
+// scale pointers are ignored. head_dim must be 64, 100 or 128 (checked by
+// the Python wrapper; anything else returns cudaErrorInvalidValue). q, k
+// and v must be 16-byte aligned. partials: f32 scratch of S * ceil(L /
+// kSplit) * Hkv * W * (H / Hkv) * (partial_dim(D) + 2) elements,
+// uninitialised.
 extern "C" int sjd_decode_attention(
     const void* q, const void* k, const void* v, const void* ks, const void* vs,
     const void* cache_end, const void* valid, void* out, void* partials,
@@ -535,6 +591,12 @@ extern "C" int sjd_decode_attention(
   } else if (!quantized && D == 64) {
     return launch<__nv_bfloat16, 64>(q, k, v, ks, vs, cache_end, valid, out, partials, S, W,
                                      H, Hkv, NL, L, layer, st);
+  } else if (quantized && D == 100) {
+    return launch<int8_t, 100>(q, k, v, ks, vs, cache_end, valid, out, partials, S, W, H, Hkv,
+                               NL, L, layer, st);
+  } else if (!quantized && D == 100) {
+    return launch<__nv_bfloat16, 100>(q, k, v, ks, vs, cache_end, valid, out, partials, S, W,
+                                      H, Hkv, NL, L, layer, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -27,7 +27,12 @@
 // - Registers. Lane l holds elements [lV, lV + V) and [D/2 + lV, D/2 + lV
 //   + V) of its head, V = D / 64: RoPE's partner pairs stay in one lane,
 //   and for D = 128 each half is one 4-byte bf16x2 load (a warp reads 128
-//   contiguous bytes per half).
+//   contiguous bytes per half). D = 100 (LlamaGen GPT-3B) does not divide
+//   by 64, and its partners are (j, j + 50): there lane l holds the pairs
+//   (j, j + 50) for j = l and j = l + 32 < 50 (lanes 18..31 hold one
+//   pair), loaded one bf16 at a time, since a 200-byte head row keeps no
+//   word of a lane aligned. The empty slot adds 0 to the sums and the amax
+//   and stores nothing.
 // - Reductions. Mean, variance and amax are five __shfl_xor_sync steps
 //   each. Every lane ends with the same value (the butterfly adds the same
 //   two numbers in each lane), so there is no shared memory and no
@@ -111,10 +116,75 @@ __device__ __forceinline__ void store_i8(int8_t* p, const float (&x)[V]) {
   }
 }
 
+// The elements lane `lane` holds of a D-wide head: slot i is element
+// off(lane, i) of the first half and off(lane, i) + D / 2 of the second.
+// D % 64 == 0: V = D / 64 consecutive slots, loaded as words; else
+// (D = 100) slot i is lane + 32 i, live while it is below D / 2.
+template <int D>
+struct LaneMap {
+  static constexpr bool kStrided = D % 64 != 0;
+  static constexpr int V = kStrided ? (D / 2 + 31) / 32 : D / 64;
+  static __device__ __forceinline__ int off(int lane, int i) {
+    return kStrided ? lane + 32 * i : lane * V + i;
+  }
+  static __device__ __forceinline__ bool live(int lane, int i) {
+    return !kStrided || lane + 32 * i < D / 2;
+  }
+};
+
+// a half's V values for this lane (0 in an empty slot), widened to f32
+template <int D, typename T>
+__device__ __forceinline__ void load_half(const T* p, int lane, float (&x)[LaneMap<D>::V]) {
+  using M = LaneMap<D>;
+  if constexpr (M::kStrided) {
+#pragma unroll
+    for (int i = 0; i < M::V; ++i) {
+      x[i] = 0.f;
+      if (M::live(lane, i)) {
+        if constexpr (sizeof(T) == 4) {
+          x[i] = p[M::off(lane, i)];
+        } else {
+          x[i] = __bfloat162float(p[M::off(lane, i)]);
+        }
+      }
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    load_f32<M::V>(p + lane * M::V, x);
+  } else {
+    load_bf16<M::V>(p + lane * M::V, x);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_half_bf16(__nv_bfloat16* p, int lane,
+                                                const float (&x)[LaneMap<D>::V]) {
+  using M = LaneMap<D>;
+  if constexpr (M::kStrided) {
+#pragma unroll
+    for (int i = 0; i < M::V; ++i)
+      if (M::live(lane, i)) p[M::off(lane, i)] = __float2bfloat16_rn(x[i]);
+  } else {
+    store_bf16<M::V>(p + lane * M::V, x);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_half_i8(int8_t* p, int lane,
+                                              const float (&x)[LaneMap<D>::V]) {
+  using M = LaneMap<D>;
+  if constexpr (M::kStrided) {
+#pragma unroll
+    for (int i = 0; i < M::V; ++i)
+      if (M::live(lane, i)) p[M::off(lane, i)] = (int8_t)x[i];
+  } else {
+    store_i8<M::V>(p + lane * M::V, x);
+  }
+}
+
 // grid: (ceil((Hq + 2 * Hkv) / kWarps), S * T); block: kWarps warps.
 // Warp w of block x takes head x * kWarps + w of its row: [0, Hq) query
-// heads, then Hkv key heads, then Hkv value heads. D = 64 * V.
-template <int V>
+// heads, then Hkv key heads, then Hkv value heads.
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
     const __nv_bfloat16* __restrict__ qp,   // [S*T, Hq*D]
     const __nv_bfloat16* __restrict__ kp,   // [S*T, Hkv*D]
@@ -132,7 +202,8 @@ __global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
     __nv_bfloat16* __restrict__ k_scale,    // [S, NL, L, Hkv], null: bf16 cache
     __nv_bfloat16* __restrict__ v_scale,
     int T, int Hq, int Hkv, int NL, int L, int layer, int qk_norm, float eps) {
-  constexpr int D = 64 * V;
+  using M = LaneMap<D>;
+  constexpr int V = M::V;
   constexpr int kHalf = D / 2;
   const int lane = threadIdx.x & 31;
   const int hh = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -148,31 +219,30 @@ __global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
   } else {
     kind = 2; h = hh - Hq - Hkv; heads = Hkv; src = vp;
   }
-  const int e = lane * V;  // this lane's elements: [e, e+V) and [kHalf+e, kHalf+e+V)
   const int smp = row / T;
 
   // Every global load is issued here, before the first shuffle: at these
   // sizes the kernel's time is its chain of dependent memory latencies.
   const __nv_bfloat16* x = src + ((size_t)row * heads + h) * D;
-  float a[V], b[V];
-  load_bf16<V>(x + e, a);
-  load_bf16<V>(x + kHalf + e, b);
+  float a[V], b[V];  // this lane's slots of the first and the second half
+  load_half<D>(x, lane, a);
+  load_half<D>(x + kHalf, lane, b);
   float ca[V], cb[V], sa[V], sb[V];  // cos, sin (q and k heads)
   float na[V], nb[V], ma[V], mb[V];  // norm scale, bias (with qk_norm)
   if (kind < 2) {
     const float* c = cos_t + (size_t)row * D;
     const float* s = sin_t + (size_t)row * D;
-    load_f32<V>(c + e, ca);
-    load_f32<V>(c + kHalf + e, cb);
-    load_f32<V>(s + e, sa);
-    load_f32<V>(s + kHalf + e, sb);
+    load_half<D>(c, lane, ca);
+    load_half<D>(c + kHalf, lane, cb);
+    load_half<D>(s, lane, sa);
+    load_half<D>(s + kHalf, lane, sb);
     if (qk_norm) {
       const __nv_bfloat16* sc = (kind == 0 ? qns : kns) + (size_t)h * D;
       const __nv_bfloat16* bi = (kind == 0 ? qnb : knb) + (size_t)h * D;
-      load_bf16<V>(sc + e, na);
-      load_bf16<V>(sc + kHalf + e, nb);
-      load_bf16<V>(bi + e, ma);
-      load_bf16<V>(bi + kHalf + e, mb);
+      load_half<D>(sc, lane, na);
+      load_half<D>(sc + kHalf, lane, nb);
+      load_half<D>(bi, lane, ma);
+      load_half<D>(bi + kHalf, lane, mb);
     }
   }
   const int end = kind > 0 ? cache_end[smp] : 0;
@@ -188,7 +258,8 @@ __global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
       for (int i = 0; i < V; ++i) {
         da[i] = __fsub_rn(a[i], mean);
         db[i] = __fsub_rn(b[i], mean);
-        sq = __fadd_rn(__fadd_rn(sq, __fmul_rn(da[i], da[i])), __fmul_rn(db[i], db[i]));
+        if (M::live(lane, i))
+          sq = __fadd_rn(__fadd_rn(sq, __fmul_rn(da[i], da[i])), __fmul_rn(db[i], db[i]));
       }
       const float var = __fdiv_rn(warp_reduce<false>(sq), (float)D);
       const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
@@ -209,8 +280,8 @@ __global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
 
   if (kind == 0) {
     __nv_bfloat16* out = q_out + ((size_t)row * Hq + h) * D;
-    store_bf16<V>(out + e, a);
-    store_bf16<V>(out + kHalf + e, b);
+    store_half_bf16<D>(out, lane, a);
+    store_half_bf16<D>(out + kHalf, lane, b);
     return;
   }
 
@@ -230,13 +301,13 @@ __global__ void __launch_bounds__(kWarps * 32) epilogue_kernel(
       b[i] = fminf(fmaxf(rintf(__fdiv_rn(b[i], scale)), -127.f), 127.f);
     }
     int8_t* out = static_cast<int8_t*>(kind == 1 ? k_cache : v_cache) + dst;
-    store_i8<V>(out + e, a);
-    store_i8<V>(out + kHalf + e, b);
+    store_half_i8<D>(out, lane, a);
+    store_half_i8<D>(out + kHalf, lane, b);
     if (lane == 0) (kind == 1 ? k_scale : v_scale)[crow * Hkv + h] = __float2bfloat16_rn(scale);
   } else {
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(kind == 1 ? k_cache : v_cache) + dst;
-    store_bf16<V>(out + e, a);
-    store_bf16<V>(out + kHalf + e, b);
+    store_half_bf16<D>(out, lane, a);
+    store_half_bf16<D>(out + kHalf, lane, b);
   }
 }
 
@@ -268,10 +339,13 @@ extern "C" int sjd_fused_epilogue(
       static_cast<__nv_bfloat16*>(k_scale), static_cast<__nv_bfloat16*>(v_scale), T,   \
       Hq, Hkv, NL, L, layer, qk_norm, eps
   if (D == 128) {
-    epilogue_kernel<2><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
+    epilogue_kernel<128><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
+    err = cudaGetLastError();
+  } else if (D == 100) {
+    epilogue_kernel<100><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
     err = cudaGetLastError();
   } else if (D == 64) {
-    epilogue_kernel<1><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
+    epilogue_kernel<64><<<grid, kWarps * 32, 0, st>>>(SJD_EPILOGUE_ARGS);
     err = cudaGetLastError();
   } else {
     err = cudaErrorInvalidValue;

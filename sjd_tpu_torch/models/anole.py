@@ -64,6 +64,7 @@ def anole_engine(
     guidance_scale: float = 7.0,
     image_top_k: int = 2000,
     text_top_k: int = 10,
+    top_p: Optional[float] = None,
     scheme: str = "speculative_jacobi",
     init: str = "random",
     max_len: int = 0,
@@ -93,7 +94,7 @@ def anole_engine(
     )
     sampling = SamplingParams(
         guidance_scale=guidance_scale, do_cfg=True, image_top_k=image_top_k,
-        text_top_k=text_top_k, greedy=greedy,
+        text_top_k=text_top_k, top_p=top_p, greedy=greedy,
     )
     engine = SJDEngine(model, econfig,
                        anole_grammar(multimodal_generation_mode, max_len=max_len,

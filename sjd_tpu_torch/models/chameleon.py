@@ -78,6 +78,7 @@ def lumina_engine(
     guidance_scale: float = 3.0,
     image_top_k: int = 2000,
     text_top_k: int = 10,
+    top_p: Optional[float] = None,
     scheme: str = "speculative_jacobi",
     init: str = "random",
     max_len: int = 0,
@@ -89,6 +90,7 @@ def lumina_engine(
     model_cfg: Optional[DecoderConfig] = None,  # overrides the size registry;
     # must keep the FlexAR vocab layout
     cuda_graph: bool = True,  # SJDEngine's: replay a captured step on CUDA
+    ar_fast_path: bool = False,  # SJDEngine's: width-1 steps outside the interval
     device=None,
 ) -> SJDEngine:
     dev = resolve_device(device)
@@ -110,8 +112,9 @@ def lumina_engine(
     )
     sampling = SamplingParams(
         guidance_scale=guidance_scale, do_cfg=True, image_top_k=image_top_k,
-        text_top_k=text_top_k, temperature=temperature, greedy=greedy,
+        text_top_k=text_top_k, temperature=temperature, top_p=top_p, greedy=greedy,
     )
-    engine = SJDEngine(model, econfig, LUMINA_GRAMMAR, sampling, cuda_graph=cuda_graph)
+    engine = SJDEngine(model, econfig, LUMINA_GRAMMAR, sampling, cuda_graph=cuda_graph,
+                       ar_fast_path=ar_fast_path)
     engine.model_cfg = cfg
     return engine

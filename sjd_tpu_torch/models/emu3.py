@@ -72,6 +72,7 @@ def emu3_engine(
     guidance_scale: float = 3.0,
     image_top_k: int = 2048,
     text_top_k: int = 10,
+    top_p: Optional[float] = None,
     scheme: str = "speculative_jacobi",
     init: str = "random",
     max_len: int = 0,
@@ -102,7 +103,7 @@ def emu3_engine(
     )
     sampling = SamplingParams(
         guidance_scale=guidance_scale, do_cfg=True, image_top_k=image_top_k,
-        text_top_k=text_top_k, temperature=temperature, greedy=greedy,
+        text_top_k=text_top_k, temperature=temperature, top_p=top_p, greedy=greedy,
     )
     engine = SJDEngine(model, econfig, EMU3_GRAMMAR, sampling, cuda_graph=cuda_graph)
     engine.model_cfg = cfg

@@ -9,9 +9,8 @@ CFG runs ``cfg_mode="neg_prompt"`` with the unconditional embedding (the
 table's last row, or the learned uncond caption) as the negative prompt.
 Generation is fixed-length: ``latent_size ** 2`` image tokens, no grammar.
 
-GPT-XL has 20 heads of 64, which both kernels take; GPT-B's and GPT-L's
-heads are 64 as well, GPT-3B's 100, which they do not: on CUDA its engine
-is refused unless the config asks for ``attn_impl="plain"``.
+Both kernels take every published size's heads: 64 (GPT-B, GPT-L,
+GPT-XL, GPT-XXL, GPT-XXXL, GPT-1B), 100 (GPT-3B) and 128 (GPT-7B).
 """
 
 from __future__ import annotations

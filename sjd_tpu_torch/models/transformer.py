@@ -19,7 +19,9 @@ layer's epilogue and attention go through the hand-written kernels of
 ``sjd_tpu_torch/ops``, and the epilogue kernel writes the window's K/V rows
 into the cache itself; everything else takes the plain chain below and
 ``write_kv_layer``, as the JAX package's prefill takes XLA code. The plain
-attention runs over blocks of at most ``ATTEND_BLOCK_ROWS`` query rows.
+attention runs over blocks of at most ``ATTEND_BLOCK_ROWS`` query rows;
+with ``DecoderConfig.attn_buckets`` it reads the cache in chunks up to the
+live edge (``_attend_chunked``).
 
 Weights are bf16 tensors (``F.linear``) or the quantized leaves of
 :func:`quantize_weights`: ``{"q": int8 [.., N, K], "s": bf16 [.., N]}`` or
@@ -89,6 +91,10 @@ class DecoderConfig:
     # "plain": the plain chain and plain products everywhere (the JAX "xla"
     # value), the card's reference path
     attn_impl: str = "auto"
+    # cache rows per chunk of the live-prefix chunked attention on the plain
+    # path (sjd_tpu's attn_buckets; 0: the whole buffer at once): used where
+    # the buffer divides into chunks of min(attn_buckets, L_buf)
+    attn_buckets: int = 0
     norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
@@ -578,6 +584,56 @@ def _attend_quantized(q: Tensor, k_q: Tensor, v_q: Tensor, k_s: Tensor,
     return out.reshape(S, T, H, D).to(q.dtype)
 
 
+def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, k_s: Optional[Tensor],
+                    v_s: Optional[Tensor], mask: Tensor, live_end: Optional[int],
+                    chunk: int) -> Tensor:
+    """The live-prefix chunked attention (sjd_tpu's ``_attend_chunked``): an
+    online softmax over ``chunk``-row slices of the cache (int8 with the
+    scales ``k_s``/``v_s`` factored out as in :func:`_attend_quantized`, or
+    bf16), exact, since a chunk wholly masked for a row adds
+    exp(NEG_INF - m) = 0 and leaves its correction at 1. Query rows go in
+    blocks of ATTEND_BLOCK_ROWS, and each block reads only the chunks up to
+    its own causal edge, ``live_end + block end`` rows (``live_end`` =
+    max(cache_end), read on the host); with ``live_end`` None (under a CUDA
+    graph capture, where the count of chunks must not depend on the data)
+    it walks every chunk of the buffer. A block's f32 scores are one
+    chunk's: [S, Hkv, group, block rows, chunk]."""
+    S, T, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    p_dt = v.dtype if v_s is None else q.dtype
+    outs = []
+    for t0 in range(0, T, ATTEND_BLOCK_ROWS):
+        t1 = min(T, t0 + ATTEND_BLOCK_ROWS)
+        qg = q[:, t0:t1].reshape(S, t1 - t0, Hkv, group, D).float()
+        n_rows = L if live_end is None else min(L, live_end + t1)
+        m = torch.full((S, Hkv, group, t1 - t0), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((S, Hkv, group, t1 - t0, D), dtype=torch.float32, device=q.device)
+        for c0 in range(0, n_rows, chunk):
+            c1 = c0 + chunk
+            s = torch.einsum("sthgd,slhd->shgtl", qg, k[:, c0:c1].to(q.dtype).float())
+            if k_s is not None:
+                s = s * (k_s[:, c0:c1].float().permute(0, 2, 1)[:, :, None, None, :]
+                         / math.sqrt(D))
+            else:
+                s = s / math.sqrt(D)
+            s = torch.where(mask[:, None, None, t0:t1, c0:c1], s, NEG_INF)
+            m2 = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m2[..., None])
+            corr = torch.exp(m - m2)
+            l = l * corr + p.sum(-1)
+            if v_s is not None:
+                p = p * v_s[:, c0:c1].float().permute(0, 2, 1)[:, :, None, None, :]
+            pv = torch.einsum("shgtl,slhd->shgtd", p.to(p_dt).float(),
+                              v[:, c0:c1].to(q.dtype).float())
+            acc = acc * corr[..., None] + pv
+            m = m2
+        out = acc / torch.clamp_min(l, 1e-37)[..., None]  # [S, Hkv, group, Tb, D]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(S, t1 - t0, H, D))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 class ForwardResult(NamedTuple):
     logits: Tensor  # [S, T_out, V] float32
     kv: KVCache
@@ -611,6 +667,13 @@ def forward(
     cache_end = cache_end.to(torch.int32).expand(S).contiguous()
     use_kernels = cfg.attn_impl == "auto" and h.is_cuda and T <= KERNEL_MAX_T
     mask = None if use_kernels else _decode_masks(cache_end, valid, T, L_buf)
+    # the live-prefix chunked attention where the JAX package takes it: on
+    # the plain path, when the buffer divides into whole chunks
+    chunk = min(cfg.attn_buckets, L_buf) if cfg.attn_buckets else 0
+    use_chunked = chunk > 0 and not use_kernels and L_buf % chunk == 0
+    live_end = None
+    if use_chunked and not (h.is_cuda and torch.cuda.is_current_stream_capturing()):
+        live_end = int(cache_end.max())  # one host read per forward
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     aq, plain = cfg.act_quant, cfg.attn_impl == "plain"
 
@@ -645,6 +708,12 @@ def forward(
         if cfg.kv_quant:
             write_kv_layer(kv.k_scale, kscale, i, cache_end)
             write_kv_layer(kv.v_scale, vscale, i, cache_end)
+        if use_chunked:
+            out = _attend_chunked(q, kv.k[:, i], kv.v[:, i],
+                                  kv.k_scale[:, i] if cfg.kv_quant else None,
+                                  kv.v_scale[:, i] if cfg.kv_quant else None,
+                                  mask, live_end, chunk)
+        elif cfg.kv_quant:
             out = _attend_quantized(q, kv.k[:, i], kv.v[:, i], kv.k_scale[:, i],
                                     kv.v_scale[:, i], mask)
         else:

@@ -27,27 +27,33 @@ from ._build import load, ptr
 
 Tensor = torch.Tensor
 NEG_INF = float(torch.finfo(torch.float32).min)
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 100, 128)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The kernel's C entry point and the cache rows of one split (a
-    constant of the CUDA source), typed once when the library is loaded (not
-    on every call: the caller's host path is the bottleneck)."""
+    """The kernel's C entry point, the cache rows of one split (a constant
+    of the CUDA source) and each head width's partial row width (D, or the
+    shared-memory padding's 128 for D = 100), typed once when the library is
+    loaded (not on every call: the caller's host path is the bottleneck)."""
     lib = load("decode_attention")
     fn = lib.sjd_decode_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.sjd_decode_attention_split_rows.restype = ctypes.c_int
-    return fn, int(lib.sjd_decode_attention_split_rows())
+    lib.sjd_decode_attention_partial_dim.restype = ctypes.c_int
+    lib.sjd_decode_attention_partial_dim.argtypes = [ctypes.c_int]
+    partial_dim = {d: int(lib.sjd_decode_attention_partial_dim(d)) for d in _KERNEL_HEAD_DIMS}
+    return fn, int(lib.sjd_decode_attention_split_rows()), partial_dim
 
 
 def partials_numel(S: int, W: int, H: int, Hkv: int, D: int, L: int) -> int:
     """f32 elements of the kernel's scratch: per split of the buffer, per
-    KV head, unnormalised acc [W * group, D] and (m, l) per row."""
-    n_split = -(-L // _entry()[1])
-    return S * n_split * Hkv * W * (H // Hkv) * (D + 2)
+    KV head, unnormalised acc [W * group, partial width] and (m, l) per
+    row."""
+    _, split_rows, partial_dim = _entry()
+    n_split = -(-L // split_rows)
+    return S * n_split * Hkv * W * (H // Hkv) * (partial_dim[D] + 2)
 
 
 def decode_masks(cache_end: Tensor, valid: Tensor, T: int, L: int) -> Tensor:

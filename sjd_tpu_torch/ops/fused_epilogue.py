@@ -29,7 +29,7 @@ import torch
 from ._build import load
 
 Tensor = torch.Tensor
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 100, 128)
 _INV127 = (torch.tensor(1.0) / torch.tensor(127.0)).item()  # f32 1/127, exactly
 
 

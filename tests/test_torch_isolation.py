@@ -36,6 +36,6 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
     assert seen["n_modules"] == expected >= 31
     for name in ("models.emu3", "models.anole", "models.vq.emu3_vq", "models.vq.emu3_port",
                  "data.emu3_processor", "utils.emu3_tokenizer", "models.llamagen",
-                 "models.t5"):
+                 "models.t5", "core.decomposer"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

@@ -88,18 +88,25 @@ EPILOGUE_CASES = {
     # from the 2-D table (ROPE_2D_CASES): sample 1's window lies in the
     # caption rows, which do not rotate
     "llamagen_xl": ((2, 16, 20, 20, 64, 36, 1280, 35), (1140, 100)),
+    # LlamaGen GPT-3B: 32 heads of 100 (MHA), 24 layers, a 384px c2i
+    # image's buffer (one class row, a 24 x 24 grid), the last layer;
+    # sample 1's window starts at the class row, which does not rotate
+    "llamagen_3b": ((2, 16, 32, 32, 100, 24, 1024, 23), (600, 0)),
 }
-ROPE_2D_CASES = {"llamagen_xl"}
+# the cases whose cos/sin rows come from a LlamaGen 2-D table: (size, grid
+# rows, condition rows)
+ROPE_2D_CASES = {"llamagen_xl": ("GPT-XL", 1024, 120), "llamagen_3b": ("GPT-3B", 576, 1)}
 
 
-def _rope_2d_rows(cuda, ends, T):
-    """cos, sin [S, T, 64] of GPT-XL's 2-D table (120 caption rows, a 32 x 32
-    grid) at rows ends[s] .. ends[s] + T - 1."""
+def _rope_2d_rows(cuda, case, ends, T):
+    """cos, sin [S, T, D] of the case's 2-D table at rows ends[s] ..
+    ends[s] + T - 1."""
     from sjd_tpu_torch.models.llamagen import llamagen_config
     from sjd_tpu_torch.models.transformer import make_rope_table
 
-    table = make_rope_table(llamagen_config("GPT-XL", block_size=1024, cls_token_num=120),
-                            1280, device=cuda)
+    name, block, cls_len = ROPE_2D_CASES[case]
+    table = make_rope_table(llamagen_config(name, block_size=block, cls_token_num=cls_len),
+                            cls_len + block + 64, device=cuda)
     pos = torch.tensor(ends, device=cuda)[:, None] + torch.arange(T, device=cuda)
     return table[pos, 0].contiguous(), table[pos, 1].contiguous()
 
@@ -124,7 +131,7 @@ def test_epilogue_into_cache_matches_plain(cuda, case, quantize, qk_norm):
     (S, T, H, Hkv, D, NL, L, layer), ends = EPILOGUE_CASES[case]
     args = _epilogue_inputs(cuda, S, T, H, Hkv, D, qk_norm)
     if case in ROPE_2D_CASES:
-        args = (*args[:7], *_rope_2d_rows(cuda, ends, T))
+        args = (*args[:7], *_rope_2d_rows(cuda, case, ends, T))
     cache_end = torch.tensor(ends, dtype=torch.int32, device=cuda)
     got_c = _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize)
     want_c = _sentinel_caches(cuda, S, NL, L, Hkv, D, quantize)
@@ -177,6 +184,13 @@ ATTENTION_CASES = {
     # the first window and the last
     "llamagen_xl_fill150": ((2, 16, 20, 20, 64, 2, 1280), (150, 150), (100, 0)),
     "llamagen_xl_fill1140": ((2, 16, 20, 20, 64, 2, 1280), (1140, 1140), (100, 0)),
+    # LlamaGen GPT-3B: MHA, 32 heads of 100 (rows of 200 or 100 bytes, not
+    # 16-byte aligned), a 384px c2i image's 1024-row buffer; fills early,
+    # mid and at the image's last window
+    "llamagen_3b_fill150": ((2, 16, 32, 32, 100, 2, 1024), (150, 150), (0, 0)),
+    "llamagen_3b_fill400": ((2, 16, 32, 32, 100, 2, 1024), (400, 400), (0, 0)),
+    "llamagen_3b_fill600": ((2, 16, 32, 32, 100, 2, 1024), (600, 577), (0, 0)),
+    "llamagen_3b_w1": ((2, 1, 32, 32, 100, 1, 1024), (300, 17), (0, 5)),  # the AR step
 }
 
 
@@ -381,6 +395,39 @@ def test_llamagen_heads_forward_kernel_path_matches_plain_path(cuda, kv_quant):
     assert err <= 0.05 * outs[1].abs().max().item(), err
 
 
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_llamagen_3b_heads_forward_kernel_path_matches_plain_path(cuda, kv_quant):
+    """GPT-3B's attention shape in a 2-layer decoder: 32 heads of 100 (MHA),
+    the 2-D RoPE table, bf16 weights; a class row's prefill, then a window
+    at grid positions, through the kernels against attn_impl="plain"."""
+    import dataclasses
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.llamagen import llamagen_config
+
+    cfg = dataclasses.replace(llamagen_config("GPT-3B", block_size=576, cls_token_num=1),
+                              vocab_size=1024, num_layers=2, kv_quant=kv_quant)
+    params = pt.init_params(0, cfg, device=cuda)
+    rope = pt.make_rope_table(cfg, 640, device=cuda)
+    S, W, L = 2, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    embeds = 0.02 * torch.randn((S, 1, cfg.hidden_size), generator=gen, device=cuda)
+    ids = torch.randint(0, 1024, (S, W), generator=gen, device=cuda)
+    valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
+    pos = torch.zeros((S, 1), dtype=torch.int32, device=cuda)
+    pos_w = (1 + torch.arange(W, device=cuda, dtype=torch.int32)).expand(S, W).contiguous()
+    outs = []
+    for c in (cfg, dataclasses.replace(cfg, attn_impl="plain")):
+        kv = pt.init_kv_cache(c, S, L, device=cuda)
+        zero = torch.zeros((S,), dtype=torch.int32, device=cuda)
+        pt.forward(params, c, torch.zeros((S, 1), dtype=torch.int32, device=cuda), pos, kv,
+                   zero, valid, rope, inputs_embeds=embeds)
+        outs.append(pt.forward(params, c, ids, pos_w, kv, zero + 1, valid, rope).logits)
+    err = (outs[0] - outs[1]).abs().max().item()
+    assert torch.isfinite(outs[0]).all()
+    assert err <= 0.05 * outs[1].abs().max().item(), err
+
+
 # -- the engine's captured decode step --------------------------------------
 
 
@@ -427,6 +474,35 @@ def test_graph_path_equals_eager_path(cuda):
         assert torch.equal(getattr(eager, name), getattr(graph, name)), name
     for a, b in zip(eager.kv, graph.kv):
         assert torch.equal(a, b), "KV cache bytes differ"
+
+
+def test_ar_fast_path_graph_equals_eager(cuda):
+    """ar_fast_path=True on the 128px Lumina engine through a whole image:
+    the steps past the interval (62 generated tokens) take the width-1
+    graph, captured once beside the wide one; the tokens, NFE, accept_hist
+    and the KV cache equal the eager run's, and the greedy tokens the
+    always-wide graph run's, which bf16 products need not keep bit for bit
+    across widths (so only their count of equal tokens is read)."""
+    import dataclasses
+
+    runs = {}
+    for graph, fast in ((False, True), (True, True), (True, False)):
+        eng, prompt = _small_lumina(cuda, graph)
+        eng.ar_fast_path = fast
+        eng.sampling = dataclasses.replace(eng.sampling, greedy=True)
+        params = _params(cuda, eng)
+        res, st = eng.generate(params, 0, torch.tensor([prompt], device=cuda),
+                               return_state=True)
+        runs[graph, fast] = res, st, eng.stats
+    (e_res, e_st, e_stats), (g_res, g_st, g_stats), (w_res, _, w_stats) = runs.values()
+    assert torch.equal(e_res.tokens, g_res.tokens) and e_res.nfe == g_res.nfe
+    assert torch.equal(e_res.accept_hist, g_res.accept_hist)
+    for a, b in zip(e_st.kv, g_st.kv):
+        assert torch.equal(a, b), "KV cache bytes differ"
+    assert g_stats.captures_by_width == {16: 1, 1: 1}, g_stats
+    assert g_stats.replays_by_width[1] > 0 and set(e_stats.eager_by_width) == {16, 1}
+    assert w_stats.captures_by_width == {16: 1}
+    assert (g_res.tokens == w_res.tokens).float().mean().item() > 0.5
 
 
 def test_refill_under_graph_keeps_live_slot_and_does_not_recapture(cuda):

@@ -384,21 +384,24 @@ def test_registry_loads_llamagen_on_the_device_asked_for(tmp_path):
 
 
 def test_head_width_the_kernels_do_not_take_is_refused_on_cuda(monkeypatch):
-    """GPT-3B's heads of 100: on CUDA with attn_impl="auto" the engine and
+    """Both kernels take GPT-3B's heads of 100 (and every other published
+    size's 64 or 128), so no LlamaGen size is refused on CUDA. A width they
+    still do not take (96) is: on CUDA with attn_impl="auto" the engine and
     the loader refuse it before any weight is drawn, naming the explicit
-    plain path; the plain path, the CPU and GPT-XL's heads of 64 pass."""
+    plain path; the plain path and the CPU pass."""
     cfg3b = pl.llamagen_config("GPT-3B")
     assert cfg3b.head_dim == 100
+    assert pt.KERNEL_HEAD_DIMS == (64, 100, 128)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match='attn_impl="plain"'):
-        pl.llamagen_engine(name="GPT-3B", device="cuda")
-    with pytest.raises(ValueError, match='attn_impl="plain"'):
-        load_llamagen(name="GPT-3B", device="cuda")
-    pt.check_kernel_head_dim(dataclasses.replace(cfg3b, attn_impl="plain"), "cuda")
-    pt.check_kernel_head_dim(cfg3b, "cpu")
-    for name in ("GPT-B", "GPT-L", "GPT-XL", "GPT-XXL", "GPT-XXXL", "GPT-1B", "GPT-7B"):
+    for name in pl.SIZES:
         pt.check_kernel_head_dim(pl.llamagen_config(name), "cuda")
-    assert pt.KERNEL_HEAD_DIMS == (64, 128)
+    cfg96 = dataclasses.replace(cfg3b, hidden_size=32 * 96, head_dim=96)
+    with pytest.raises(ValueError, match='attn_impl="plain"'):
+        pl.llamagen_engine(model_cfg=cfg96, latent_size=16, device="cuda")
+    with pytest.raises(ValueError, match='attn_impl="plain"'):
+        load_llamagen(model_cfg=cfg96, latent_size=16, device="cuda")
+    pt.check_kernel_head_dim(dataclasses.replace(cfg96, attn_impl="plain"), "cuda")
+    pt.check_kernel_head_dim(cfg96, "cpu")
 
 
 def _stream_requests(cond, pc, n=3, cls_len=6):

@@ -118,17 +118,27 @@ def test_forward_from_embeddings_with_2d_rope_matches_jax(kv_quant):
 
 
 def test_decoder_config_from_jax_refuses_a_field_it_would_drop():
-    """A JAX DecoderConfig field with no counterpart in the port passes only
-    at its default; the 2-D RoPE fields are carried over; attn_impl, which
-    names TPU paths, is not."""
+    """Every JAX DecoderConfig field has its counterpart in the port: the
+    2-D RoPE fields and attn_buckets are carried over; attn_impl, which
+    names TPU paths, is not. A field with no counterpart (a JAX config
+    grown by one) passes only at its default."""
     jcfg = dataclasses.replace(TINY, rope_style="2d", rope_2d_cls_len=3, rope_2d_grid_side=5)
     cfg = decoder_config_from_jax(jcfg)
     assert (cfg.rope_style, cfg.rope_2d_cls_len, cfg.rope_2d_grid_side) == ("2d", 3, 5)
     lacking = ({f.name for f in dataclasses.fields(jt.DecoderConfig)}
                - {f.name for f in dataclasses.fields(pt.DecoderConfig)})
-    assert lacking == {"attn_buckets"}
-    with pytest.raises(ValueError, match="attn_buckets"):
-        decoder_config_from_jax(dataclasses.replace(jcfg, attn_buckets=8))
+    assert lacking == set()
+    assert cfg.attn_buckets == 0
+    assert decoder_config_from_jax(dataclasses.replace(jcfg, attn_buckets=8)).attn_buckets == 8
+
+    @dataclasses.dataclass(frozen=True)
+    class Grown(jt.DecoderConfig):
+        new_knob: int = 0
+
+    grown = Grown(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    assert decoder_config_from_jax(grown) == cfg
+    with pytest.raises(ValueError, match="new_knob"):
+        decoder_config_from_jax(dataclasses.replace(grown, new_knob=1))
     assert decoder_config_from_jax(dataclasses.replace(jcfg, attn_impl="xla")).attn_impl == "auto"
     assert decoder_config_from_jax(jcfg, attn_impl="plain").attn_impl == "plain"
 
