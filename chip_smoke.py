@@ -156,7 +156,29 @@ and the decode options, and LlamaGen GPT-3B (32 heads of 100, 24 layers):
   31. llamagen_3b_options - the same with init="sample_horizon" and
                top_p=0.95.
 
-Each of the paths 6-8, 9b, 10-11, 12b, 14-17, 19-22 and 24-31 starts from kernel launch counts of 0 and
+and evaluation (sjd_tpu_torch/eval), its files under build/chip_smoke_eval/
+(removed at the end):
+
+  9d. eval_latency - decode_step_latencies on the bf16 7B (batch 2, window
+               16, a 2500-row cache filled to 1200): full, half_layers and
+               small_head, each captured once and replayed, with each TPU
+               kernel's launches per forward (32, 16, 32);
+  9e. eval_harness_tokens - a 4-row Parti-layout TSV split into 2 workers:
+               one shard through run_prompt_set(sample_fn), the other
+               through run_prompt_set_batched (2 slots) at 768px, then both
+               again (every image skipped); images per minute of each;
+  31b. eval_harness_embeds - 4 class ids through run_prompt_set_batched on
+               GPT-3B in embedding mode at 384px;
+  32. eval_scores - FID and IS (random InceptionV3 in torchvision's layout)
+               and CLIPScore (random ViT-B/32 at full width) on those
+               images: each tower on the card against the CPU, and its
+               time; the values are no quality figures;
+  33. eval_cli - python -m sjd_tpu_torch.eval.eval_model (W4A16 7B, 512px,
+               2 slots, FID) and python -m sjd_tpu_torch.eval.recon_eval
+               (chameleon at 512px, VQ-16 at 256px) as processes that must
+               exit 0 with the JAX scripts' JSON keys.
+
+Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31 and 31b starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -2770,6 +2792,388 @@ def phase_emu3_understand_chunked(dev, model, chunk: int = 512):
     check(rows % chunk == 0, f"{chunk} does not divide the {rows}-row buffer")
 
 
+# -- evaluation (sjd_tpu_torch/eval) -------------------------------------------
+
+EVAL_DIR = os.path.join(HERE, "build", "chip_smoke_eval")
+# the JSON keys that the JAX package's command lines print: examples/
+# eval_model.py prints run_prompt_set's or run_prompt_set_batched's stats and
+# evaluate_quantitative_scores' scores (FID only with --inception-ckpt);
+# examples/recon_eval.py:153-160 its one line
+SOLO_STATS_KEYS = {"generated", "skipped_existing", "mean_latency_s"}
+BATCHED_STATS_KEYS = {"generated", "skipped_existing", "slots", "wall_s", "images_per_min"}
+FID_SCORE_KEYS = {"n_images", "fid"}
+RECON_KEYS = ["tokenizer", "n", "rfid", "psnr_db", "smoke_weights", "smoke_extractor"]
+PARTI_TSV = ("Prompt\tCategory\tChallenge\tNote\n"
+             "a red fox in the snow\tAnimals\tBasic\t\n"
+             '"a lighthouse at dusk, ""long exposure""\tbeside the sea"\tOutdoor Scenes\t'
+             "Imagination\tquoted, with a tab\n"
+             "three green apples on a wooden table\tProduce & Plants\tQuantity\t\n"
+             "an old map of a harbour town\tArtifacts\tFine-grained Detail\t\n")
+
+
+class ClipTok:
+    """A CLIP BPE stand-in with HF's call signature: a word -> an id in
+    1..49405, then <|endoftext|> (49407, the largest id), zeros after."""
+
+    def __call__(self, texts, padding, max_length, truncation, return_tensors):
+        import zlib
+
+        import numpy as np
+
+        rows = []
+        for t in texts:
+            ids = [1 + zlib.crc32(w.encode()) % 49405 for w in t.split()][: max_length - 1]
+            ids.append(49407)
+            rows.append(ids + [0] * (max_length - len(ids)))
+        return {"input_ids": np.asarray(rows, np.int64)}
+
+
+def _forward_counter(eng) -> dict:
+    """Count the engine's prefill forwards (generate and refill calls: each
+    one forward) from now on, by wrapping the two methods on the instance."""
+    calls = {"generate": 0, "refill": 0}
+
+    def wrap(name):
+        real = getattr(eng, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+
+        setattr(eng, name, counted)
+
+    wrap("generate")
+    wrap("refill")
+    return calls
+
+
+def phase_eval_latency(dev, model, iters: int = 50):
+    """eval.latency.decode_step_latencies on the bf16 7B (batch 2, window 16,
+    a 2500-row int8 cache filled to 1200): the window forward captured once
+    per variant and replayed ``iters`` times, for the full model, half the
+    layers and an 8192-row head (the two ablated ones on fresh random
+    weights), each variant twice in turns (full, half, small, small, half,
+    full). Each call's launches come from one eager warm-up forward and one
+    captured forward: each TPU kernel once per layer of the variant (32,
+    16, 32)."""
+    import torch
+
+    from sjd_tpu_torch.eval.latency import decode_step_latencies, default_variants
+    from sjd_tpu_torch.ops import launch_counts
+
+    cfg = model.engine.model_cfg
+    variants = default_variants(cfg)
+    order = list(variants) + list(variants)[::-1]
+    ms, per_fwd, peak = {n: [] for n in variants}, {}, {}
+    for name in order:
+        overrides = variants[name]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        sec = decode_step_latencies(cfg, model.params, batch=2, window=16, buf_len=2500,
+                                    cache_fill=1200, iters=iters,
+                                    variants={name: overrides}, device=dev)
+        ms[name].append(1e3 * sec[name])
+        per_fwd[name] = {k: n / 2 for k, n in launch_counts().items()}
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        layers = overrides.get("num_layers", cfg.num_layers)
+        want = {"fused_epilogue": layers, "decode_attention": layers, "quant_linear_a16": 0,
+                "quant_linear_a8": 0}
+        check(per_fwd[name] == want, f"eval_latency {name}: {per_fwd[name]} launches per "
+                                     f"forward, not {want}")
+    mean = {n: statistics.mean(v) for n, v in ms.items()}
+    emit("eval_latency", batch=2, window=16, buf_len=2500, cache_fill=1200, iters=iters,
+         ms_in_turns=ms, ms=mean, half_layers_share=mean["half_layers"] / mean["full"],
+         small_head_saving_ms=mean["full"] - mean["small_head"],
+         launches_per_forward=per_fwd, peak_mem_gb=peak)
+    check(all(math.isfinite(v) and v > 0 for v in mean.values()), f"latencies {ms}")
+
+
+def _read_pngs(d: str, n: int, shape) -> dict:
+    import numpy as np
+
+    from sjd_tpu_torch.utils.image_io import read_png
+
+    names = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+    arrs = {f: read_png(os.path.join(d, f)) for f in names}
+    check(len(arrs) == n, f"{d}: {len(arrs)} PNGs, not {n}")
+    for f, a in arrs.items():
+        check(a.shape == tuple(shape) and a.dtype == np.uint8, f"{d}/{f} is {a.shape} {a.dtype}")
+    return arrs
+
+
+def phase_eval_harness_tokens(dev, model, root: str) -> str:
+    """The generation harness on the bf16 7B at 768px: a 4-row Parti-layout
+    TSV (one prompt quoted, with a doubled quote and a tab) read by
+    eval.datasets and split into 2 workers; worker 0's shard through
+    run_prompt_set(model.sample_fn), worker 1's through
+    run_prompt_set_batched(model, slots=2, chunk_steps=192), each from
+    launch counts of 0: each TPU kernel 32 times per forward (prefills and
+    refills included); then both again, which must skip every image. Every
+    PNG reads back as (768, 768, 3) uint8, and the last solo one equals the
+    array sample_fn returned for it. Returns the images' directory."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.eval.datasets import load_parti_prompts, shard_prompts
+    from sjd_tpu_torch.eval.harness import run_prompt_set, run_prompt_set_batched
+    from sjd_tpu_torch.ops import launch_counts
+
+    tsv = os.path.join(root, "parti.tsv")
+    with open(tsv, "w") as f:
+        f.write(PARTI_TSV)
+    records = load_parti_prompts(tsv)
+    check(len(records) == 4 and records[1].prompt ==
+          'a lighthouse at dusk, "long exposure"\tbeside the sea', f"{records}")
+    shards = [shard_prompts(records, worker_id=w, num_workers=2) for w in (0, 1)]
+    wd = os.path.join(root, "lumina_768")
+    eng = model.engine
+    table = per_forward(model.params, eng.model_cfg)
+
+    # worker 0: one prompt at a time
+    made, nfes = [], []
+
+    def sample_fn(prompt):
+        img = model.sample_fn(prompt)
+        made.append(img)
+        nfes.append(int(model.extras["last_result"].nfe))
+        return img
+
+    eng.stats = GraphStats()
+    _zero_launch_counts()
+    solo = run_prompt_set(sample_fn, shards[0], wd, log_every=0)
+    torch.cuda.synchronize()
+    solo_launches = eng.stats.executed(launch_counts())
+    solo_nfe = sum(nfes)
+
+    # worker 1: two slots of a StreamingBatcher
+    eng.stats = GraphStats()
+    calls = _forward_counter(eng)
+    _zero_launch_counts()
+    batched = run_prompt_set_batched(model, shards[1], wd, slots=2, chunk_steps=192,
+                                     log_every=0)
+    torch.cuda.synchronize()
+    batched_launches = eng.stats.executed(launch_counts())
+    forwards = eng.stats.eager_steps + eng.stats.replays + calls["generate"] + calls["refill"]
+    del eng.generate, eng.refill  # the instance's wrappers
+
+    again = [run_prompt_set(sample_fn, shards[0], wd, log_every=0),
+             run_prompt_set_batched(model, shards[1], wd, slots=2, log_every=0)]
+    arrs = _read_pngs(wd, 4, (TARGET_SIZE, TARGET_SIZE, 3))
+    last = f"{shards[0][-1].index}.png"
+    emit("eval_harness_tokens", size=TARGET_SIZE, records=len(records),
+         shards=[[r.index for r in s] for s in shards], solo=solo, batched=batched,
+         rerun=again, solo_nfe=nfes, solo_images_per_min=60.0 / solo["mean_latency_s"],
+         batched_images_per_min=batched["images_per_min"], batched_forwards=forwards,
+         batched_prefills=calls, solo_launches=solo_launches,
+         batched_launches=batched_launches,
+         launches_expected={"solo": {k: n * solo_nfe for k, n in table.items()},
+                            "batched": {k: n * forwards for k, n in table.items()}},
+         graph_replays=eng.stats.replays, captures=eng.stats.captures)
+    check(solo["generated"] == 2 and batched["generated"] == 2,
+          f"generated {solo['generated']} solo, {batched['generated']} batched")
+    check(set(solo) == SOLO_STATS_KEYS and set(batched) == BATCHED_STATS_KEYS,
+          f"stats keys {sorted(solo)}, {sorted(batched)}")
+    check([a["generated"] for a in again] == [0, 0]
+          and [a["skipped_existing"] for a in again] == [2, 2], f"the rerun made {again}")
+    check(np.array_equal(arrs[last], made[-1]), f"{last} differs from sample_fn's array")
+    check(eng.stats.captures >= 1 and eng.stats.replays > 0, f"graph path idle: {eng.stats}")
+    for name, n in table.items():
+        check(solo_launches[name] == n * solo_nfe,
+              f"{name}: {solo_launches[name]} launches for {solo_nfe} solo forwards")
+        check(batched_launches[name] == n * forwards,
+              f"{name}: {batched_launches[name]} launches for {forwards} batched forwards")
+    return wd
+
+
+def phase_eval_harness_embeds(dev, model, root: str) -> str:
+    """run_prompt_set_batched in embedding mode on GPT-3B c2i at 384px: 4
+    class-id records through 2 slots (rows made by embed_prompt_fn, sent to
+    the batcher from the host in a wave), each a (384, 384, 3) PNG; each TPU
+    kernel 24 times per forward (the one-row prefills and refills
+    included). Returns the images' directory."""
+    import torch
+
+    from sjd_tpu_torch.core.engine import GraphStats
+    from sjd_tpu_torch.eval.datasets import PromptRecord
+    from sjd_tpu_torch.eval.harness import run_prompt_set_batched
+    from sjd_tpu_torch.ops import launch_counts
+
+    wd = os.path.join(root, "llamagen_3b_384")
+    recs = [PromptRecord(index=i, prompt=str(c)) for i, c in enumerate((207, 360, 387, 974))]
+    eng = model.engine
+    table = per_forward(model.params, eng.model_cfg)
+    eng.stats = GraphStats()
+    calls = _forward_counter(eng)
+    _zero_launch_counts()
+    stats = run_prompt_set_batched(model, recs, wd, slots=2, log_every=0)
+    torch.cuda.synchronize()
+    launches = eng.stats.executed(launch_counts())
+    forwards = eng.stats.eager_steps + eng.stats.replays + calls["generate"] + calls["refill"]
+    del eng.generate, eng.refill
+    _read_pngs(wd, 4, (384, 384, 3))
+    emit("eval_harness_embeds", size=384, classes=[r.prompt for r in recs], stats=stats,
+         forwards=forwards, prefills=calls, launches=launches,
+         launches_expected={k: n * forwards for k, n in table.items()},
+         captures=eng.stats.captures, graph_replays=eng.stats.replays)
+    check(stats["generated"] == 4 and set(stats) == BATCHED_STATS_KEYS, f"{stats}")
+    check(eng.stats.captures >= 1 and eng.stats.replays > 0, f"graph path idle: {eng.stats}")
+    for name, n in table.items():
+        check(launches[name] == n * forwards,
+              f"{name}: {launches[name]} launches for {forwards} forwards")
+    return wd
+
+
+def phase_eval_scores(dev, root: str, gen_dir: str, ref_dir: str) -> dict:
+    """FID, IS and CLIPScore on the harness images, on seeded random weights
+    (no real Inception or CLIP weights exist here, so the values are no
+    quality figures):
+      * a random InceptionV3 state dict with torchvision's names and shapes,
+        torch.save'd and read by make_inception_extractor_from_ckpt: pool3
+        features of the 768px images and the 384px ones on the card against
+        the CPU (f32, TF32 off) within rtol 2e-3 / atol 2e-4 of the largest
+        feature; FID and IS (pixel probs) finite; ms per image at batch 16;
+      * a ViT-B/32 checkpoint directory at full width (12 + 12 layers, 768 /
+        512 wide, projection 512; HF names, config.json, pytorch_model.bin)
+        through NativeCLIP with a stand-in tokenizer: image and text
+        embeddings card against CPU within 1e-3 of the largest; CLIPScore
+        finite; ms per batch of 32 images and of 64 texts.
+    Returns the checkpoint paths for the command lines."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.eval import clip as pclip
+    from sjd_tpu_torch.eval.datasets import load_parti_prompts
+    from sjd_tpu_torch.eval.inception import (
+        make_inception_extractor_from_ckpt, pool3_features, port_inception_v3,
+        synth_inception_state_dict)
+    from sjd_tpu_torch.eval.metrics import (
+        clip_score, evaluate_clip_score, evaluate_quantitative_scores, load_image_dir,
+        make_pixel_probs)
+
+    # InceptionV3
+    inc_path = os.path.join(root, "inception.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in synth_inception_state_dict(0).items()},
+               inc_path)
+    card = make_inception_extractor_from_ckpt(inc_path, device=dev)
+    cpu = make_inception_extractor_from_ckpt(inc_path, device="cpu")
+    feats = {}
+    for name, d in (("768", gen_dir), ("384", ref_dir)):
+        x = load_image_dir(d)
+        feats[name] = (card(x), cpu(x))
+    inc_err = max(float(np.abs(a - b).max()) for a, b in feats.values())
+    inc_scale = max(float(np.abs(b).max()) for _, b in feats.values())
+    t0 = time.time()
+    scores = evaluate_quantitative_scores(gen_dir, ref_dir, feature_fn=card,
+                                          probs_fn=make_pixel_probs())
+    scores_s = time.time() - t0
+    params = port_inception_v3(synth_inception_state_dict(0), device=dev)
+    batch = torch.rand((16, 299, 299, 3), device=dev)
+    with torch.no_grad():
+        inc_ms = eager_ms(lambda: pool3_features(params, batch), reps=5, trials=5) / 16
+    del params, batch
+
+    # CLIP ViT-B/32
+    cfg = pclip.CLIPConfig.vit_b32()
+    clip_dir = os.path.join(root, "clip_vit_b32")
+    os.makedirs(clip_dir, exist_ok=True)
+    with open(os.path.join(clip_dir, "config.json"), "w") as f:
+        _json.dump(pclip.hf_config(cfg), f)
+    torch.save({k: torch.from_numpy(v) for k, v in pclip.synth_clip_state_dict(cfg, 0).items()},
+               os.path.join(clip_dir, "pytorch_model.bin"))
+    prompts = [r.prompt for r in load_parti_prompts(os.path.join(root, "parti.tsv"))]
+    clips = [pclip.NativeCLIP(clip_dir, tokenizer=ClipTok(), device=d)
+             for d in (dev, torch.device("cpu"))]
+    x = load_image_dir(gen_dir, size=224)
+    (img_card, txt_card), (img_cpu, txt_cpu) = [
+        (c.image_embeds(x), c.text_embeds(prompts)) for c in clips]
+    clip_err = max(float(np.abs(img_card - img_cpu).max()), float(np.abs(txt_card - txt_cpu).max()))
+    clip_scale = max(float(np.abs(img_cpu).max()), float(np.abs(txt_cpu).max()))
+    cs = clip_score(img_card, txt_card)
+    cs_dir = evaluate_clip_score(gen_dir, prompts, clip_dir, tokenizer=ClipTok(), device=dev)
+    native = clips[0]
+    px = torch.from_numpy(pclip.preprocess_images(np.concatenate([x] * 8)[:32])).to(dev)
+    ids = torch.from_numpy(ClipTok()(prompts * 16, "max_length", 77, True, "np")["input_ids"]
+                           ).to(dev)
+    with torch.no_grad():
+        img_ms = eager_ms(lambda: pclip.clip_image_features(native.params, cfg, px), reps=5,
+                          trials=5)
+        txt_ms = eager_ms(lambda: pclip.clip_text_features(native.params, cfg, ids), reps=5,
+                          trials=5)
+    del clips, native, px, ids
+    torch.cuda.empty_cache()
+    emit("eval_scores", weights="seeded random (no quality figure)",
+         inception_card_vs_cpu_max_abs_err=inc_err, inception_feature_scale=inc_scale,
+         fid_768_vs_384=scores.get("fid"), inception_score_pixel_probs=scores.get(
+             "inception_score"), scores=scores, scores_s=scores_s,
+         inception_ms_per_image_b16=inc_ms, clip_card_vs_cpu_max_abs_err=clip_err,
+         clip_embed_scale=clip_scale, clip_score=cs, clip_score_dir=cs_dir,
+         clip_image_ms_b32=img_ms, clip_text_ms_b64=txt_ms)
+    check(inc_err <= 2e-4 + 2e-3 * inc_scale, f"Inception card against CPU: {inc_err}")
+    check(all(np.isfinite(v) for v in scores.values()), f"scores {scores}")
+    check(clip_err <= 1e-3 * clip_scale, f"CLIP card against CPU: {clip_err}")
+    check(math.isfinite(cs) and math.isfinite(cs_dir), f"CLIPScore {cs}, {cs_dir}")
+    return {"inception": inc_path, "clip": clip_dir}
+
+
+def _run_module(args, timeout: int = 600) -> tuple:
+    """``python -m args...`` from the repository's root: (its JSON lines,
+    seconds); a non-zero exit fails the phase."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=HERE, capture_output=True,
+                         text=True, timeout=timeout)
+    check(out.returncode == 0, f"{' '.join(args[:3])} exited {out.returncode}: "
+                               f"{out.stderr[-3000:]}")
+    return [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")], \
+        time.time() - t0
+
+
+def phase_eval_cli(dev, root: str, gen_dir: str, ref_dir: str, ckpts: dict):
+    """The two command lines as a user runs them, each a process of its own
+    that must exit 0 and print the JAX scripts' JSON keys:
+      * python -m sjd_tpu_torch.eval.eval_model on Lumina-mGPT-7B at W4A16
+        (random weights) at 512px: 2 COCO captions through 2 slots, then
+        FID against the 384px images through the random Inception file;
+      * python -m sjd_tpu_torch.eval.recon_eval with the random chameleon
+        VQGAN at 512px on the 768px images and the random VQ-16 at 256px on
+        the 384px ones, with the same Inception file."""
+    import numpy as np
+
+    coco = os.path.join(root, "captions.json")
+    with open(coco, "w") as f:
+        json.dump({"annotations": [{"image_id": 9, "caption": "a red fox in the snow "},
+                                   {"image_id": 4, "caption": "a lighthouse at dusk"},
+                                   {"image_id": 4, "caption": "a lighthouse at dusk by the sea"},
+                                   {"image_id": 7, "caption": "three green apples"}]}, f)
+    wd = os.path.join(root, "cli_lumina_512")
+    lines, model_s = _run_module([
+        "sjd_tpu_torch.eval.eval_model", "--model", "lumina_mgpt", "--target-size", "512",
+        "--quantize", "4", "--dataset", "coco", "--dataset-path", coco, "--max-prompts", "2",
+        "--slots", "2", "--workdir", wd, "--fid-reference-dir", ref_dir,
+        "--inception-ckpt", ckpts["inception"]])
+    check(len(lines) == 2, f"eval_model printed {lines}")
+    stats, scores = lines
+    recon = {}
+    for tok, size, images in (("chameleon", 512, gen_dir), ("llamagen", 256, ref_dir)):
+        out, sec = _run_module(["sjd_tpu_torch.eval.recon_eval", "--images", images,
+                                "--tokenizer", tok, "--size", str(size),
+                                "--inception-ckpt", ckpts["inception"], "--batch", "4"])
+        check(len(out) == 1, f"recon_eval printed {out}")
+        recon[tok] = dict(out[0], seconds=sec)
+    _read_pngs(wd, 2, (512, 512, 3))
+    emit("eval_cli", eval_model_stats=stats, eval_model_scores=scores, eval_model_s=model_s,
+         recon_eval=recon, weights="seeded random (no quality figure)")
+    check(set(stats) == BATCHED_STATS_KEYS and stats["generated"] == 2, f"stats {stats}")
+    check(set(scores) == FID_SCORE_KEYS and np.isfinite(scores["fid"]), f"scores {scores}")
+    for tok, r in recon.items():
+        check(list(r)[:-1] == RECON_KEYS and r["n"] == 4 and r["smoke_weights"]
+              and not r["smoke_extractor"] and np.isfinite([r["rfid"], r["psnr_db"]]).all(),
+              f"recon_eval {tok}: {r}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2808,6 +3212,11 @@ def main() -> int:
     phase_widths(dev, model.params, cfg, "widths_bf16", hold=False)
     phase_ar_fast_path(dev, model, ids, "ar_fast_path", turns=True)
     phase_decompose(dev, model, ids)
+    # evaluation on the bf16 7B: the latency probes and the harness
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    os.makedirs(EVAL_DIR)
+    phase_eval_latency(dev, model)
+    gen_dir = phase_eval_harness_tokens(dev, model, EVAL_DIR)
     # W4A8 with the int8 embedding, quantized on the card from the bf16
     # weights (no second draw), as load_lumina_mgpt(quantize="w4a8",
     # embed_bits=8) would hold them
@@ -2892,9 +3301,19 @@ def main() -> int:
                 make_engine=lambda graph: _llamagen_3b_engine(dev, m3cfg, cuda_graph=graph))
     l3_launches = phase_llamagen_3b_c2i(dev, m3)
     phase_llamagen_3b_options(dev, m3)
+    ref_dir = phase_eval_harness_embeds(dev, m3, EVAL_DIR)
     del m3
     gc.collect()
     torch.cuda.empty_cache()
+    # the scores and the command lines (which load their own 7B) on the
+    # harness images, with the card to themselves
+    try:
+        ckpts = phase_eval_scores(dev, EVAL_DIR, gen_dir, ref_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_eval_cli(dev, EVAL_DIR, gen_dir, ref_dir, ckpts)
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
     by_case = {"emu3": e_launches, "llamagen": l_launches, "llamagen_3b": l3_launches}
     for k in kernels:
         if k.get("case") in by_case:

@@ -197,3 +197,37 @@ def emu3_vq_params_from_jax(np_tree: dict, cfg: Emu3VQConfig, device=None) -> di
         raise ValueError(f"codebook is {tuple(params['codebook'].shape)}, config "
                          f"wants {(cfg.codebook_size, cfg.embed_dim)}")
     return params
+
+
+def inception_params_from_jax(np_tree: dict, device=None) -> dict:
+    """sjd_tpu InceptionV3 params (``port_inception_v3``: BN folded, HWIO
+    numpy leaves) -> the port's: OIHW, f32."""
+    dev = resolve_device(device)
+    return {name: {"w": tensor_from_numpy(p["w"], dev).permute(3, 2, 0, 1).contiguous(),
+                   "b": tensor_from_numpy(p["b"], dev)}
+            for name, p in np_tree.items()}
+
+
+def clip_config_from_jax(jcfg):
+    """The port's CLIPConfig with a sjd_tpu CLIPConfig's fields."""
+    from .eval.clip import CLIPConfig, CLIPTowerConfig
+
+    def tower(t):
+        return CLIPTowerConfig(**{f.name: getattr(t, f.name) for f in dataclasses.fields(t)})
+
+    return CLIPConfig(vision=tower(jcfg.vision), text=tower(jcfg.text),
+                      projection_dim=jcfg.projection_dim, dtype=torch_dtype(jcfg.dtype))
+
+
+def clip_params_from_jax(np_tree: dict, cfg, device=None) -> dict:
+    """sjd_tpu CLIP params (``port_clip``, numpy leaves) -> the port's: the
+    stacked ``[L, ...]`` tower leaves as they are, and the ``[P * P * 3,
+    D]`` patch matrix (each patch flattened as (P, P, 3)) back to the conv
+    weight ``[D, 3, P, P]``."""
+    dev = resolve_device(device)
+    params = _tree({k: v for k, v in np_tree.items() if k != "patch_kernel"},
+                   lambda a: tensor_from_numpy(a, dev))
+    P = cfg.vision.patch_size
+    pk = tensor_from_numpy(np_tree["patch_kernel"], dev)
+    params["patch_weight"] = pk.reshape(P, P, 3, -1).permute(3, 2, 0, 1).contiguous()
+    return params

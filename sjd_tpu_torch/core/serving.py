@@ -217,7 +217,10 @@ class StreamingBatcher:
     prompt_mask=)``, each [P', embed_dim] with P' <= ``prompt_width``),
     left-padded with zero rows; the padding is masked out of the cond half
     only, as the engine attends every row of an embedding prompt's uncond
-    half. ``submit`` keeps its payload on the host (lists, CPU tensors): a
+    half. ``make_gstate(metas)`` (optional) builds the slots' grammar state
+    from each request's ``meta`` (None for idle slots), the Emu3 seam;
+    without it the engine's own default arms each slot.
+    ``submit`` keeps its payload on the host (lists, CPU tensors): a
     CUDA call from a client thread while the drive thread captures the
     decode step would break the capture, so device tensors are refused.
     The drive thread makes the engine's device its current device (a
@@ -226,6 +229,7 @@ class StreamingBatcher:
 
     def __init__(self, engine, params, *, batch: int = 4, chunk_steps: int = 128,
                  prompt_width: int, neg_width: int = 0, embed_dim: int = 0,
+                 make_gstate: Optional[Callable[[List[Optional[dict]]], Any]] = None,
                  row_sharding: Any = None):
         if row_sharding is not None:
             raise NotImplementedError("row_sharding (data-parallel slots) is not ported: the "
@@ -237,13 +241,14 @@ class StreamingBatcher:
         self.P = prompt_width
         self.neg_width = neg_width
         self.embed_dim = embed_dim
+        self.make_gstate = make_gstate
         dev = engine.device
         # the drive thread's current device (a per-thread setting)
         self._cuda_index = (None if dev.type != "cuda" else
                             dev.index if dev.index is not None else torch.cuda.current_device())
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
-        # (PendingResult, ids or (embeds, neg embeds, mask), neg ids, seed)
+        # (PendingResult, ids or (embeds, neg embeds, mask), neg ids, seed, meta)
         self._pending: List[tuple] = []
         self._count = 0
         self._completed = 0
@@ -275,7 +280,8 @@ class StreamingBatcher:
     # -- client side -----------------------------------------------------
 
     def submit(self, prompt_ids=None, neg_prompt_ids=None, seed: int = 0,
-               prompt_embeds=None, neg_prompt_embeds=None, prompt_mask=None) -> PendingResult:
+               meta: Optional[dict] = None, prompt_embeds=None, neg_prompt_embeds=None,
+               prompt_mask=None) -> PendingResult:
         neg = None
         if self.embed_dim:
             payload = self._embed_payload(prompt_ids, prompt_embeds, neg_prompt_embeds,
@@ -296,7 +302,7 @@ class StreamingBatcher:
                 raise RuntimeError("batcher closed")
             handle = PendingResult(self._count)
             self._count += 1
-            self._pending.append((handle, payload, neg, int(seed)))
+            self._pending.append((handle, payload, neg, int(seed), meta))
             self._wake.notify()
         return handle
 
@@ -340,6 +346,10 @@ class StreamingBatcher:
         seeds; slots outside ``reqs`` get ``fill``'s prompt."""
         B = self.B
         seeds = [reqs[b][3] if b in reqs else 0 for b in range(B)]
+        gstate = {}
+        if self.make_gstate is not None:
+            gstate["gstate"] = self.make_gstate([reqs[b][4] if b in reqs else None
+                                                 for b in range(B)])
         if self.embed_dim:
             pe_rows, ne_rows, mask_rows = [], [], []
             for b in range(B):
@@ -350,7 +360,7 @@ class StreamingBatcher:
                 mask_rows.append(torch.cat([torch.zeros(len(z), dtype=torch.bool), pm]))
             kw = dict(prompt=None, prompt_embeds=torch.stack(pe_rows),
                       neg_prompt_embeds=torch.stack(ne_rows),
-                      prompt_mask=torch.stack(mask_rows))
+                      prompt_mask=torch.stack(mask_rows), **gstate)
             return dict(kw=kw, seeds=seeds)
         ids_rows, mask_rows, neg_rows, negm_rows = [], [], [], []
         for b in range(B):
@@ -363,7 +373,7 @@ class StreamingBatcher:
                 neg_rows.append(row)
                 negm_rows.append(m)
         kw = dict(prompt=np.asarray(ids_rows, np.int32),
-                  prompt_mask=np.asarray(mask_rows, bool))
+                  prompt_mask=np.asarray(mask_rows, bool), **gstate)
         if self.neg_width:
             kw.update(neg_prompt=np.asarray(neg_rows, np.int32),
                       neg_mask=np.asarray(negm_rows, bool))

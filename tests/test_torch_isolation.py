@@ -1,7 +1,8 @@
 """sjd_tpu_torch imports neither JAX nor any module of sjd_tpu, and none of
-safetensors, transformers, tokenizers, sentencepiece, PIL and tiktoken when
-its modules are imported (the Emu3, Anole, LlamaGen and T5 modules included): the machine with the GPU has none of them, so such an
-import would break the port there."""
+safetensors, transformers, tokenizers, sentencepiece, PIL, tiktoken, pandas
+and torchvision when its modules are imported (the Emu3, Anole, LlamaGen,
+T5 and evaluation modules, the command lines included): the machine with the
+GPU has none of them, so such an import would break the port there."""
 
 import json
 import pkgutil
@@ -15,7 +16,7 @@ _PROBE = r"""
 import importlib, json, pkgutil, sys
 # any import of these now raises ImportError
 for blocked in ("jax", "jaxlib", "safetensors", "transformers", "tokenizers",
-                "sentencepiece", "PIL", "tiktoken"):
+                "sentencepiece", "PIL", "tiktoken", "pandas", "torchvision"):
     sys.modules[blocked] = None
 import sjd_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")]
@@ -33,9 +34,11 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     expected = len(list(pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")))
-    assert seen["n_modules"] == expected >= 31
+    assert seen["n_modules"] == expected >= 52
     for name in ("models.emu3", "models.anole", "models.vq.emu3_vq", "models.vq.emu3_port",
                  "data.emu3_processor", "utils.emu3_tokenizer", "models.llamagen",
-                 "models.t5", "core.decomposer"):
+                 "models.t5", "core.decomposer", "eval.datasets", "eval.metrics",
+                 "eval.inception", "eval.clip", "eval.harness", "eval.latency",
+                 "eval.eval_model", "eval.recon_eval", "utils.image_io"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

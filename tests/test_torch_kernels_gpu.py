@@ -855,3 +855,96 @@ def test_quantized_graph_path_equals_eager_path(cuda):
         assert torch.equal(getattr(states[False], name), getattr(states[True], name)), name
     for a, b in zip(states[False].kv, states[True].kv):
         assert torch.equal(a, b), "KV cache bytes differ"
+
+
+# -- evaluation: the towers and the batched harness on the card ---------------
+
+
+def test_inception_extractor_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """The checkpoint-file extractor (bilinear resize to 299, the trunk) on
+    the card against the CPU in f32 (TF32 off): rtol 2e-3 / atol 2e-4, the
+    CPU tests' tolerance against the JAX package."""
+    import numpy as np
+
+    from sjd_tpu_torch.eval.inception import (
+        make_inception_extractor_from_ckpt, synth_inception_state_dict)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    path = str(tmp_path / "inception.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in synth_inception_state_dict(0).items()}, path)
+    imgs = np.random.RandomState(0).rand(3, 128, 128, 3).astype(np.float32)
+    got = make_inception_extractor_from_ckpt(path, batch=2, device=cuda)(imgs)
+    want = make_inception_extractor_from_ckpt(path, batch=2, device="cpu")(imgs)
+    assert got.shape == (3, 2048) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+def test_clip_towers_card_equal_cpu(cuda, monkeypatch):
+    """Both CLIP towers at ViT-B/32's widths with 2 layers each, on the card
+    against the CPU in f32 (TF32 off), within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+
+    from sjd_tpu_torch.eval import clip as pclip
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    full = pclip.CLIPConfig.vit_b32()
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, layers=2),
+                              text=dataclasses.replace(full.text, layers=2))
+    sd = pclip.synth_clip_state_dict(cfg, 0)
+    rs = np.random.RandomState(0)
+    px = torch.from_numpy(rs.randn(2, 224, 224, 3).astype(np.float32))
+    ids = torch.from_numpy(rs.randint(1, 49000, size=(3, 77)))
+    ids[:, 20] = 49407  # the eot
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = pclip.port_clip(sd, cfg, device=dev)
+        outs.append((pclip.clip_image_features(params, cfg, px.to(dev)).cpu(),
+                     pclip.clip_text_features(params, cfg, ids.to(dev)).cpu()))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_batched_harness_through_the_graph_equals_eager(cuda, tmp_path):
+    """run_prompt_set_batched in token mode on the 128px Lumina engine: 3
+    records through 2 slots on the captured decode step give the same PNGs
+    as on an eager engine (per-slot seeds; graph and eager steps are
+    bit-equal), and a second run skips them all."""
+    import os
+
+    import numpy as np
+
+    from sjd_tpu_torch.eval.datasets import PromptRecord
+    from sjd_tpu_torch.eval.harness import run_prompt_set_batched
+    from sjd_tpu_torch.utils.image_io import read_png
+
+    def image_of(toks):
+        px = (np.asarray(toks[-48:], np.int64) % 256).astype(np.uint8)
+        return np.stack([px.reshape(6, 8)] * 3, axis=-1)
+
+    class Model:
+        def __init__(self, graph):
+            self.engine, prompt = _small_lumina(cuda, graph)
+            self.params = _params(cuda, self.engine)
+            self.extras = {"prompt_ids_fn": lambda p: prompt[len(p) % 3:],
+                           "decode_image_fn": image_of}
+
+    recs = [PromptRecord(index=i, prompt="p" * i) for i in range(3)]
+    stats = {}
+    for graph in (True, False):
+        model = Model(graph)
+        wd = str(tmp_path / str(graph))
+        stats[graph] = run_prompt_set_batched(model, recs, wd, slots=2, chunk_steps=16,
+                                              log_every=0)
+        assert stats[graph]["generated"] == 3
+        if graph:
+            assert model.engine.stats.captures >= 1 and model.engine.stats.replays > 0
+        again = run_prompt_set_batched(model, recs, wd, slots=2, log_every=0)
+        assert (again["generated"], again["skipped_existing"]) == (0, 3)
+    for i in range(3):
+        a = read_png(os.path.join(str(tmp_path / "True"), f"{i}.png"))
+        b = read_png(os.path.join(str(tmp_path / "False"), f"{i}.png"))
+        assert np.array_equal(a, b), i
