@@ -175,10 +175,34 @@ and evaluation (sjd_tpu_torch/eval), its files under build/chip_smoke_eval/
                time; the values are no quality figures;
   33. eval_cli - python -m sjd_tpu_torch.eval.eval_model (W4A16 7B, 512px,
                2 slots, FID) and python -m sjd_tpu_torch.eval.recon_eval
-               (chameleon at 512px, VQ-16 at 256px) as processes that must
-               exit 0 with the JAX scripts' JSON keys.
+               (chameleon at 512px, VQ-16 at 256px) as processes, started
+               together, that must exit 0 with the JAX scripts' JSON keys.
 
-Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31 and 31b starts from kernel launch counts of 0 and
+and fine-tuning (sjd_tpu_torch/parallel, the data path, utils/checkpoints),
+its files under build/chip_smoke_train/ (removed at the end), with every
+earlier model freed (under 1 GB allocated before train_7b):
+
+  34. train_data - 4 seeded 768px images through the taming encoder at full
+               width, pre-tokenized with 4 captions (run_pretokenize,
+               splits=2, both ranks; concat_records), read back through
+               FinetuneDataset and LengthClusteredSampler(batch_size=1,
+               grad_accum=2): 2369-token records;
+  35. train_7b - Chameleon-7B at full width and depth (bf16 parameters and
+               moments) through make_train_step on the 1 x 1 mesh, lr 1e-3,
+               grad_accum 2: 4 calls, 2 optimizer steps; the parameters
+               bit-equal to the initial ones after calls 1-3 and moved
+               after call 4; seconds per call, tokens per second, the
+               model-FLOP share, peak memory;
+  36. train_serve - the trained 7B: 256 rows prefilled by transformer.forward,
+               then a 16-token window through both TPU kernels (32 launches
+               of each), against forward_train's logits;
+  37. train_ckpt - 2 layers at the 7B's widths: save mid-accumulation, a
+               fresh state restored and run on, bit-equal to the
+               uninterrupted run; max_keep prunes;
+  38. train_cli - python -m sjd_tpu_torch.parallel.finetune (tiny model,
+               20 steps) as a process, then resumed to 30.
+
+Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31, 31b and 36 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -3119,21 +3143,50 @@ def phase_eval_scores(dev, root: str, gen_dir: str, ref_dir: str) -> dict:
     return {"inception": inc_path, "clip": clip_dir}
 
 
-def _run_module(args, timeout: int = 600) -> tuple:
-    """``python -m args...`` from the repository's root: (its JSON lines,
-    seconds); a non-zero exit fails the phase."""
+def _run_modules(arg_lists, logs: str, timeout: int = 600) -> list:
+    """``python -m args...`` for each of ``arg_lists``, all at once, from the
+    repository's root, their output in files under ``logs``: [(its JSON
+    lines, its seconds)]; a non-zero exit or the timeout fails the phase."""
+    os.makedirs(logs, exist_ok=True)
     t0 = time.time()
-    out = subprocess.run([sys.executable, "-m", *args], cwd=HERE, capture_output=True,
-                         text=True, timeout=timeout)
-    check(out.returncode == 0, f"{' '.join(args[:3])} exited {out.returncode}: "
-                               f"{out.stderr[-3000:]}")
-    return [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")], \
-        time.time() - t0
+    runs = []
+    for i, args in enumerate(arg_lists):
+        out = open(os.path.join(logs, f"{i}.out"), "w+")
+        err = open(os.path.join(logs, f"{i}.err"), "w+")
+        runs.append((args, out, err, subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                                                      stdout=out, stderr=err, text=True)))
+    done: dict = {}
+    try:
+        while len(done) < len(runs):
+            check(time.time() - t0 < timeout, f"{timeout} s passed with {len(done)} of "
+                                              f"{len(runs)} command lines done")
+            for i, (_, _, _, proc) in enumerate(runs):
+                if i not in done and proc.poll() is not None:
+                    done[i] = time.time() - t0
+            time.sleep(0.2)
+    finally:
+        for _, _, _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = []
+    for i, (args, out, err, proc) in enumerate(runs):
+        out.seek(0)
+        err.seek(0)
+        text, errors = out.read(), err.read()
+        out.close()
+        err.close()
+        check(proc.returncode == 0, f"{' '.join(args[:3])} exited {proc.returncode}: "
+                                    f"{errors[-3000:]}")
+        results.append(([json.loads(ln) for ln in text.splitlines() if ln.startswith("{")],
+                        done[i]))
+    return results
 
 
 def phase_eval_cli(dev, root: str, gen_dir: str, ref_dir: str, ckpts: dict):
     """The two command lines as a user runs them, each a process of its own
-    that must exit 0 and print the JAX scripts' JSON keys:
+    (the three started together) that must exit 0 and print the JAX
+    scripts' JSON keys:
       * python -m sjd_tpu_torch.eval.eval_model on Lumina-mGPT-7B at W4A16
         (random weights) at 512px: 2 COCO captions through 2 slots, then
         FID against the 384px images through the random Inception file;
@@ -3149,18 +3202,20 @@ def phase_eval_cli(dev, root: str, gen_dir: str, ref_dir: str, ckpts: dict):
                                    {"image_id": 4, "caption": "a lighthouse at dusk by the sea"},
                                    {"image_id": 7, "caption": "three green apples"}]}, f)
     wd = os.path.join(root, "cli_lumina_512")
-    lines, model_s = _run_module([
+    recon_cases = (("chameleon", 512, gen_dir), ("llamagen", 256, ref_dir))
+    # the three processes at once: each is mostly its own start-up
+    (lines, model_s), *recon_runs = _run_modules([[
         "sjd_tpu_torch.eval.eval_model", "--model", "lumina_mgpt", "--target-size", "512",
         "--quantize", "4", "--dataset", "coco", "--dataset-path", coco, "--max-prompts", "2",
         "--slots", "2", "--workdir", wd, "--fid-reference-dir", ref_dir,
-        "--inception-ckpt", ckpts["inception"]])
+        "--inception-ckpt", ckpts["inception"]]] + [
+        ["sjd_tpu_torch.eval.recon_eval", "--images", images, "--tokenizer", tok,
+         "--size", str(size), "--inception-ckpt", ckpts["inception"], "--batch", "4"]
+        for tok, size, images in recon_cases], os.path.join(root, "cli_logs"))
     check(len(lines) == 2, f"eval_model printed {lines}")
     stats, scores = lines
     recon = {}
-    for tok, size, images in (("chameleon", 512, gen_dir), ("llamagen", 256, ref_dir)):
-        out, sec = _run_module(["sjd_tpu_torch.eval.recon_eval", "--images", images,
-                                "--tokenizer", tok, "--size", str(size),
-                                "--inception-ckpt", ckpts["inception"], "--batch", "4"])
+    for (tok, _, _), (out, sec) in zip(recon_cases, recon_runs):
         check(len(out) == 1, f"recon_eval printed {out}")
         recon[tok] = dict(out[0], seconds=sec)
     _read_pngs(wd, 2, (512, 512, 3))
@@ -3172,6 +3227,327 @@ def phase_eval_cli(dev, root: str, gen_dir: str, ref_dir: str, ckpts: dict):
         check(list(r)[:-1] == RECON_KEYS and r["n"] == 4 and r["smoke_weights"]
               and not r["smoke_extractor"] and np.isfinite([r["rfid"], r["psnr_db"]]).all(),
               f"recon_eval {tok}: {r}")
+
+
+TRAIN_DIR = os.path.join(HERE, "build", "chip_smoke_train")
+TRAIN_CAPTIONS = ("a red fox in the snow", "a lighthouse at dusk by the sea",
+                  "three green apples on a wooden table", "an old map of a harbour town")
+PARAMS_7B = 7.0e9  # Chameleon-7B's parameters, embedding and head included (model-FLOP share)
+
+
+def phase_train_data(dev, root: str) -> list:
+    """The fine-tuning data path at 768px: 4 seeded images through the
+    taming encoder at full width on the card, pre-tokenized with 4 captions
+    by run_pretokenize (splits=2, both ranks) and concat_records, read back
+    through FinetuneDataset and LengthClusteredSampler(batch_size=1,
+    grad_accum=2). Returns the sampler's 4 batches (pad_batch)."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.data.dataset import FinetuneDataset, pad_batch
+    from sjd_tpu_torch.data.pre_tokenize import concat_records, run_pretokenize
+    from sjd_tpu_torch.data.sampler import LengthClusteredSampler
+    from sjd_tpu_torch.data.vocab_translation import mapping_from_vocab
+    from sjd_tpu_torch.models.vq import CHAMELEON_VQ, encode, init_vq_params
+
+    t0 = time.time()
+    vq = init_vq_params(7, CHAMELEON_VQ, device=dev)
+    rng = np.random.default_rng(21)
+    yy, xx = np.mgrid[0:TARGET_SIZE, 0:TARGET_SIZE] / TARGET_SIZE
+    f = TARGET_SIZE // 16
+    grids = []
+    with torch.no_grad():
+        for i in range(len(TRAIN_CAPTIONS)):
+            img = np.stack([np.sin((6 + i) * xx), np.cos((5 + i) * yy), xx * yy * 2 - 1], -1)
+            img = np.clip(img + 0.1 * rng.standard_normal(img.shape), -1, 1).astype(np.float32)
+            ids = encode(vq, CHAMELEON_VQ, torch.from_numpy(img[None]).to(dev))[0]
+            grids.append(ids.reshape(f, f).cpu().numpy())
+    encode_s = time.time() - t0
+    del vq
+    tok = ImgTokenizer()
+    items = [{"caption": c, "grid": g} for c, g in zip(TRAIN_CAPTIONS, grids)]
+    out = os.path.join(root, "pretokenized")
+    t1 = time.time()
+    for rank in range(2):
+        run_pretokenize(items, out, encode_text=tok.encode, pixels=TARGET_SIZE, splits=2,
+                        rank=rank, mapping=mapping_from_vocab(tok.get_vocab()))
+    records = concat_records(out, 2)
+    meta = os.path.join(root, "meta.json")
+    with open(meta, "w") as fh:
+        json.dump([{"path": records, "type": "t2i"}], fh)
+    ds = FinetuneDataset(meta)
+    sampler = LengthClusteredSampler(ds.lengths(), batch_size=1, grad_accum=2, seed=0)
+    order = list(sampler)
+    batches = [pad_batch([ds[i]]) for i in order]
+    tokenize_s = time.time() - t1
+    lengths = ds.lengths()
+    want = 12 + 3 + f * (f + 1) + 1 + 1  # prompt, header, rows with <eol>, <eoi>, sep
+    emit("train_data", images=len(grids), pixels=TARGET_SIZE, record_lengths=lengths,
+         sampler_order=order, encode_s=encode_s, pretokenize_and_read_s=tokenize_s,
+         labelled_tokens=[int((b[1] != -100).sum()) for b in batches])
+    check(sorted(order) == list(range(len(TRAIN_CAPTIONS))), f"sampler order {order}")
+    check(lengths == [want] * len(TRAIN_CAPTIONS), f"record lengths {lengths}, not {want}")
+    for ids, labels, mask in batches:
+        check(ids.shape == (1, want) and bool(mask.all()) and int(ids.max()) < 65536
+              and int((labels == -100).sum()) == 12, "a padded record is malformed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return batches
+
+
+def _device_time_by_kernel(run) -> dict:
+    """{kernel name: (launches, device ms)} of ``run()`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if str(ev.device_type).endswith("CUDA"):
+            us = getattr(ev, "device_time_total", None)
+            out[ev.key] = (ev.count, (ev.cuda_time_total if us is None else us) / 1e3)
+    return out
+
+
+# kernel-name classes of the train step's device time (cuBLAS/cuBLASLt
+# products, softmax, the fused AdamW, the rest)
+TRAIN_CLASSES = (("products", ("gemm", "nvjet", "cutlass", "xmma")), ("softmax", ("softmax",)),
+                 ("adamw", ("adam",)))
+
+
+def _train_breakdown(kernels: dict) -> dict:
+    classes = {name: 0.0 for name, _ in TRAIN_CLASSES}
+    classes["other"] = 0.0
+    for key, (_, ms) in kernels.items():
+        low = key.lower()
+        name = next((c for c, subs in TRAIN_CLASSES if any(x in low for x in subs)), "other")
+        classes[name] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"device_ms": sum(ms for _, ms in kernels.values()), "by_class_ms": classes,
+            "kernels": sum(n for n, _ in kernels.values()),
+            "top": [{"name": k[:120], "launches": n, "ms": ms} for k, (n, ms) in top]}
+
+
+def _equal_to(state, host: dict) -> bool:
+    import torch
+
+    return all(torch.equal(p.detach(), host[n].to(p.device))
+               for n, p in state.opt_state.names.items())
+
+
+def phase_train_7b(dev, batches):
+    """Chameleon-7B at full width and depth (chameleon_config("7B"), bf16
+    parameters and moments) through make_train_step on the 1 x 1 mesh with
+    TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=8,
+    grad_accum=2): 4 calls on the train_data records, 2 optimizer steps.
+    The parameters are bit-equal to the initial ones after calls 1-3 (1 and 3
+    only accumulate; call 2's update runs at the schedule's count 0, where
+    the rate is 0) and move after call 4 in most elements of every weight
+    matrix (of the embedding, in the rows the records use; the norms' ones
+    are below bf16's half-ulp from a 1e-3 step). Returns (state, cfg)."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.models.chameleon import chameleon_config
+    from sjd_tpu_torch.models.transformer import QUANTIZED
+    from sjd_tpu_torch.parallel import TrainConfig, make_mesh, make_train_step
+
+    gc.collect()
+    with_workspaces = torch.cuda.memory_allocated()
+    # cuBLAS keeps a workspace for every stream it ran on (the timing
+    # helpers' side streams, the batchers' threads), in the caching
+    # allocator and never freed by empty_cache
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    if resident >= 1e9:
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+                       for o in gc.get_objects()
+                       if isinstance(o, torch.Tensor) and o.is_cuda), reverse=True)
+        print(json.dumps({"phase": "train_7b_resident", "with_workspaces": with_workspaces,
+                          "resident": resident, "largest": live[:20]}), flush=True)
+    check(resident < 1e9, f"{resident / 1e9:.2f} GB still allocated before train_7b "
+                          f"({with_workspaces / 1e9:.2f} GB with cuBLAS's workspaces)")
+    cfg = chameleon_config("7B")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=8, grad_accum=2)
+    init_fn, step_fn = make_train_step(make_mesh(device=dev), cfg, tcfg, device=dev)
+    t0 = time.time()
+    state = init_fn(11)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in state.opt_state.names.values())
+    host = {n: p.detach().to("cpu", copy=True) for n, p in state.opt_state.names.items()}
+    calls, peaks, equal_after = [], [], []
+    for i, (ids, labels, mask) in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.time()
+        state, m = step_fn(state, *(torch.from_numpy(x) for x in (ids, labels, mask)))
+        torch.cuda.synchronize()
+        calls.append(dict(seconds=time.time() - t, tokens=int(mask.sum()),
+                          **{k: float(v) for k, v in m.items()}))
+        peaks.append(torch.cuda.max_memory_allocated())
+        if i < 3:
+            equal_after.append(_equal_to(state, host))
+    changed = {}
+    used = torch.unique(torch.from_numpy(np.concatenate([b[0].reshape(-1) for b in batches])))
+    for n, p in state.opt_state.names.items():
+        ref, d = host[n].to(dev), p.detach()
+        if n == "embed":
+            d, ref = d[used.to(dev).long()], ref[used.to(dev).long()]
+        changed[n] = torch.count_nonzero(d != ref).item() / d.numel()
+        del ref, d
+    # where a call's device time goes: a fifth call (an accumulating one,
+    # its gradients dropped after) under torch.profiler
+    ids, labels, mask = (torch.from_numpy(x) for x in batches[0])
+    kernels = _device_time_by_kernel(lambda: step_fn(state, ids, labels, mask))
+    state.opt_state.adamw.zero_grad(set_to_none=True)
+    state.opt_state.mini_step = 0
+    breakdown = _train_breakdown(kernels)
+    timed = calls[1:]  # after the warm-up call
+    sec = sum(c["seconds"] for c in timed) / len(timed)
+    tokens = sum(c["tokens"] for c in timed) / len(timed)
+    emit("train_7b", resident_before_gb=resident / 1e9,
+         resident_with_cublas_workspaces_gb=with_workspaces / 1e9,
+         layers=cfg.num_layers, hidden=cfg.hidden_size, heads=cfg.num_heads,
+         ff=cfg.intermediate_size, vocab=cfg.vocab_size, params=n_params, init_s=init_s,
+         calls=calls, optimizer_steps=state.opt_state.gradient_step,
+         seconds_per_call_after_warmup=sec, tokens_per_s=tokens / sec,
+         model_flop_share=6 * PARAMS_7B * tokens / sec / BF16_TENSOR_FLOPS,
+         peak_mem_gb=max(peaks) / 1e9, peak_mem_gb_by_call=[p / 1e9 for p in peaks],
+         params_equal_after_calls_1_3=equal_after, changed_share_after_call_4=changed,
+         profiled_accumulating_call=breakdown)
+    for c in calls:
+        check(math.isfinite(c["loss"]) and math.isfinite(c["grad_norm"]), f"call {c}")
+    check(state.step == 4 and state.opt_state.gradient_step == 2, "not 2 optimizer steps")
+    check(all(equal_after), f"parameters moved before the first real update: {equal_after}")
+    for n in [f"layers.{w}" for w in QUANTIZED] + ["lm_head", "embed"]:
+        check(changed[n] > 0.5, f"{n}: {changed[n]:.3f} of its elements moved after call 4")
+    del host
+    return state, cfg
+
+
+def phase_train_serve(dev, params, cfg, batch, prefix: int = 256, window: int = 16):
+    """The trained 7B through the serving path: transformer.forward
+    prefills ``prefix`` rows of a record into a bf16 cache (plain path),
+    then one 16-token window through both TPU kernels; its logits against
+    forward_train's at the same positions (5% of the largest logit, as
+    phase_forward, and the argmax at 14 of 16 positions), and each
+    kernel's launches 32 for the window."""
+    import torch
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.ops import launch_counts
+
+    n = prefix + window
+    ids = torch.from_numpy(batch[0][:, :n]).to(dev).long()
+    pos = torch.arange(n, device=dev)[None]
+    rope = pt.make_rope_table(cfg, device=dev)
+    with torch.no_grad():
+        want = pt.forward_train(params, cfg, ids, pos, rope_table=rope, remat=False)[:, prefix:]
+        kv = pt.init_kv_cache(cfg, 1, 512, device=dev)
+        valid = torch.ones((1, 512), dtype=torch.bool, device=dev)
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        pt.forward(params, cfg, ids[:, :prefix], pos[:, :prefix], kv, zero, valid, rope)
+        _zero_launch_counts()
+        got = pt.forward(params, cfg, ids[:, prefix:], pos[:, prefix:], kv, zero + prefix,
+                         valid, rope).logits
+        launches = launch_counts()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    emit("train_serve", prefix=prefix, window=window, cache="bf16", max_abs_err=err,
+         max_abs_logit=scale, tolerance=0.05 * scale, rel_l2=rel_l2, argmax_agree=agree,
+         launches=launches)
+    check(math.isfinite(err) and err <= 0.05 * scale, "the window disagrees with forward_train")
+    check(agree >= 14, f"argmax agrees at {agree} of {window} positions")
+    for k in ("fused_epilogue", "decode_attention"):
+        check(launches[k] == cfg.num_layers, f"{k}: {launches[k]} launches for the window")
+
+
+def phase_train_ckpt(dev, batches, root: str):
+    """Checkpoints at the 7B's widths with 2 layers: 3 calls (grad_accum=2,
+    so the third is mid-accumulation), save, 3 more; a fresh state from
+    another seed restored from the save runs the same 3 calls; parameters,
+    moments, AdamW's counts, the accumulation counters and the step are
+    bit-equal to the uninterrupted run's; max_keep=1 prunes the first step
+    when the second is saved."""
+    import torch
+
+    from sjd_tpu_torch.models.chameleon import chameleon_config
+    from sjd_tpu_torch.parallel import TrainConfig, make_mesh, make_train_step
+    from sjd_tpu_torch.utils import checkpoints as ckpt
+
+    cfg = dataclasses.replace(chameleon_config("7B"), num_layers=2)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=8, grad_accum=2)
+    init_fn, step_fn = make_train_step(make_mesh(device=dev), cfg, tcfg, device=dev)
+    feed = [tuple(torch.from_numpy(x) for x in batches[i % len(batches)]) for i in range(6)]
+    mgr = ckpt.make_manager(os.path.join(root, "ckpt"), max_keep=1)
+    a = init_fn(13)
+    for b in feed[:3]:
+        a, _ = step_fn(a, *b)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ckpt.save(mgr, 3, a)
+    save_s = time.time() - t0
+    on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(mgr.path(3))
+                  for f in fs)
+    for b in feed[3:]:
+        a, _ = step_fn(a, *b)
+    t0 = time.time()
+    b_state = ckpt.restore(mgr, init_fn(14))
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    restored_step = b_state.step
+    for b in feed[3:]:
+        b_state, _ = step_fn(b_state, *b)
+    sa, sb = a.state_dict(), b_state.state_dict()
+    flat = lambda sd: {f"{n}.{k}": t for n, v in sd["opt_state"]["moments"].items()
+                       for k, t in v.items()} | {f"param.{n}": t for n, t in sd["params"].items()}
+    fa, fb = flat(sa), flat(sb)
+    unequal = [k for k in fa if not torch.equal(fa[k], fb[k].to(fa[k].device))]
+    counters = [(int(sa[k]), int(sb[k])) for k in ("step",)] + [
+        (int(sa["opt_state"][k]), int(sb["opt_state"][k])) for k in ("mini_step", "gradient_step")]
+    ckpt.save(mgr, 6, a)
+    emit("train_ckpt", layers=cfg.num_layers, hidden=cfg.hidden_size, bytes_on_disk=on_disk,
+         save_s=save_s, restore_s=restore_s, restored_step=restored_step,
+         tensors_compared=len(fa), unequal=unequal, counters=counters, kept=mgr.all_steps())
+    check(restored_step == 3, f"restored step {restored_step}")
+    check(not unequal, f"resumed run differs in {unequal[:5]}")
+    check(all(x == y for x, y in counters), f"counters {counters}")
+    check(mgr.all_steps() == [6], f"max_keep=1 left {mgr.all_steps()}")
+    del a, b_state, sa, sb, fa, fb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_cli(dev, root: str):
+    """python -m sjd_tpu_torch.parallel.finetune --synthetic --model tiny
+    --steps 20 --save-interval 10 on the card as a process, then the same
+    with --resume --steps 30: both exit 0, the second resumes at step 20,
+    and its final loss is finite."""
+    ckpt_dir = os.path.relpath(os.path.join(root, "cli"), HERE)
+    runs = []
+    for extra in ([], ["--resume", "--steps", "30"]):
+        t0 = time.time()
+        out = subprocess.run(
+            [sys.executable, "-m", "sjd_tpu_torch.parallel.finetune", "--synthetic",
+             "--model", "tiny", "--steps", "20", "--save-interval", "10", "--ckpt-dir",
+             ckpt_dir, *extra], cwd=HERE, capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"finetune {extra} exited {out.returncode}: "
+                                   f"{out.stderr[-3000:]}")
+        final = json.loads(out.stdout[out.stdout.rindex('{"final_loss"'):].splitlines()[0])
+        runs.append(dict(args=extra, seconds=time.time() - t0, final=final,
+                         resumed=[ln.split("INFO ")[-1] for ln in out.stdout.splitlines()
+                                  if "resumed at step" in ln]))
+    emit("train_cli", runs=runs)
+    check(runs[1]["resumed"] == ["resumed at step 20"], f"resume logged {runs[1]['resumed']}")
+    check(runs[1]["final"]["steps"] == 30 and math.isfinite(runs[1]["final"]["final_loss"]),
+          f"final {runs[1]['final']}")
 
 
 def main() -> int:
@@ -3314,6 +3690,24 @@ def main() -> int:
         phase_eval_cli(dev, EVAL_DIR, gen_dir, ref_dir, ckpts)
     finally:
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    # fine-tuning: the data path, Chameleon-7B's train step, the trained
+    # weights through both kernels, checkpoints and the command line, under
+    # build/chip_smoke_train/ (removed at the end)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    try:
+        batches = phase_train_data(dev, TRAIN_DIR)
+        state, cfg7 = phase_train_7b(dev, batches)
+        phase_train_serve(dev, state.params, cfg7, batches[0])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_ckpt(dev, batches, TRAIN_DIR)
+        phase_train_cli(dev, TRAIN_DIR)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     by_case = {"emu3": e_launches, "llamagen": l_launches, "llamagen_3b": l3_launches}
     for k in kernels:
         if k.get("case") in by_case:

@@ -4,8 +4,11 @@ Decoding for autoregressive text-to-image), for one NVIDIA H100.
 The layout mirrors ``sjd_tpu/``: ``core/`` (engine, sampling, grammar,
 acceptance, batching), ``models/`` (decoder, Chameleon/Lumina family, VQ
 encoder and decoder), ``ops/`` (the hand-written Hopper kernels, sources in
-``csrc/``), ``data/`` (prompting), ``utils/`` (checkpoint reading and
-porting, tokenizer, profiling, logging) and ``loader.py``. ``convert.py`` turns the JAX package's parameters into
+``csrc/``), ``data/`` (prompting, the fine-tuning dataset, sampler and
+pre-tokenization), ``eval/``, ``parallel/`` (meshes, sharding rules, the
+train step, the fine-tuning command line), ``utils/`` (checkpoint reading
+and porting, training checkpoints, tokenizer, profiling, logging) and
+``loader.py``. ``convert.py`` turns the JAX package's parameters into
 this package's. Nothing here imports JAX or ``sjd_tpu``.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when

@@ -231,3 +231,11 @@ def clip_params_from_jax(np_tree: dict, cfg, device=None) -> dict:
     pk = tensor_from_numpy(np_tree["patch_kernel"], dev)
     params["patch_weight"] = pk.reshape(P, P, 3, -1).permute(3, 2, 0, 1).contiguous()
     return params
+
+
+def train_config_from_jax(jcfg):
+    """The port's ``parallel.TrainConfig`` with every field of a sjd_tpu
+    TrainConfig (the two have the same fields and defaults)."""
+    from .parallel.training import TrainConfig
+
+    return TrainConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})

@@ -21,11 +21,8 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
-from .transformer import (
-    DecoderConfig, _attend, apply_rope, embed_lookup, head_layer_norm, layer_params, linear,
-    linear_multi, make_rope_table, quantize_weights, rms_norm)
+from .transformer import DecoderConfig, _forward_train, make_rope_table, quantize_weights
 
 Tensor = torch.Tensor
 
@@ -33,51 +30,17 @@ Tensor = torch.Tensor
 def layer_outputs(params, cfg: DecoderConfig, ids: Tensor, positions: Optional[Tensor] = None,
                   rope_table: Optional[Tensor] = None):
     """Cache-free causal forward: (per-layer residual stream [NL, B, T, D]
-    f32, logits [B, T, V] f32). The attention is the plain ``_attend`` under
-    a causal mask."""
+    f32, logits [B, T, V] f32), through ``transformer.forward_train``'s
+    layer body (the plain ``_attend`` under a causal mask)."""
     B, T = ids.shape
     dev = ids.device
     if positions is None:
         positions = torch.arange(T, device=dev)[None].expand(B, T)
     if rope_table is None:
         rope_table = make_rope_table(cfg, T + 1, device=dev)
-    aq = cfg.act_quant
-    h = embed_lookup(params, ids, cfg.dtype)
-    rope = rope_table[positions.long()]
-    cos, sin = rope[:, :, 0], rope[:, :, 1]
-    i = torch.arange(T, device=dev)
-    mask = (i[:, None] >= i[None, :])[None].expand(B, T, T)
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-    def attn_block(x, p):
-        qp, kp, vp = linear_multi(x, (p["wq"], p["wk"], p["wv"]), aq)
-        q, k, v = qp.reshape(B, T, H, D), kp.reshape(B, T, Hkv, D), vp.reshape(B, T, Hkv, D)
-        if cfg.qk_norm:
-            q = head_layer_norm(q, p["q_norm_scale"], p["q_norm_bias"], cfg.qk_norm_eps)
-            k = head_layer_norm(k, p["k_norm_scale"], p["k_norm_bias"], cfg.qk_norm_eps)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        return linear(_attend(q, k, v, mask).reshape(B, T, cfg.q_dim), p["wo"], aq)
-
-    def mlp_block(x, p):
-        g, u = linear_multi(x, (p["w_gate"], p["w_up"]), aq)
-        return linear(F.silu(g.float()).to(u.dtype) * u, p["w_down"], aq)
-
-    per_layer = []
-    for li in range(cfg.num_layers):
-        p = layer_params(params["layers"], li)
-        if cfg.swin_norm:
-            h1 = h + rms_norm(attn_block(h, p), p["attn_norm"], cfg.norm_eps)
-            h = h1 + rms_norm(mlp_block(h1, p), p["mlp_norm"], cfg.norm_eps)
-        else:
-            h1 = h + attn_block(rms_norm(h, p["attn_norm"], cfg.norm_eps), p)
-            h = h1 + mlp_block(rms_norm(h1, p["mlp_norm"], cfg.norm_eps), p)
-        per_layer.append(h.float())
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_word_embeddings:
-        logits = torch.einsum("btd,vd->btv", h.float(), params["embed"].float())
-    else:
-        logits = linear(h, params["lm_head"], aq)
-    return torch.stack(per_layer), logits.float()
+    per_layer: list = []
+    logits = _forward_train(params, cfg, ids, positions, None, rope_table, False, per_layer)
+    return torch.stack(per_layer), logits
 
 
 def fidelity_metrics(params_ref, params_q, cfg: DecoderConfig, ids: Tensor) -> Dict[str, Tensor]:

@@ -1,7 +1,7 @@
-"""sjd_tpu_torch imports neither JAX nor any module of sjd_tpu, and none of
-safetensors, transformers, tokenizers, sentencepiece, PIL, tiktoken, pandas
+"""sjd_tpu_torch imports neither JAX (nor optax or orbax) nor any module of
+sjd_tpu, and none of safetensors, transformers, tokenizers, sentencepiece, PIL, tiktoken, pandas
 and torchvision when its modules are imported (the Emu3, Anole, LlamaGen,
-T5 and evaluation modules, the command lines included): the machine with the
+T5, evaluation and training modules, the command lines included): the machine with the
 GPU has none of them, so such an import would break the port there."""
 
 import json
@@ -15,7 +15,7 @@ import sjd_tpu_torch
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 # any import of these now raises ImportError
-for blocked in ("jax", "jaxlib", "safetensors", "transformers", "tokenizers",
+for blocked in ("jax", "jaxlib", "optax", "orbax", "safetensors", "transformers", "tokenizers",
                 "sentencepiece", "PIL", "tiktoken", "pandas", "torchvision"):
     sys.modules[blocked] = None
 import sjd_tpu_torch
@@ -39,6 +39,8 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
                  "data.emu3_processor", "utils.emu3_tokenizer", "models.llamagen",
                  "models.t5", "core.decomposer", "eval.datasets", "eval.metrics",
                  "eval.inception", "eval.clip", "eval.harness", "eval.latency",
-                 "eval.eval_model", "eval.recon_eval", "utils.image_io"):
+                 "eval.eval_model", "eval.recon_eval", "utils.image_io", "parallel.mesh",
+                 "parallel.sharding", "parallel.dist", "parallel.training", "parallel.finetune",
+                 "data.dataset", "data.sampler", "data.pre_tokenize", "utils.checkpoints"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

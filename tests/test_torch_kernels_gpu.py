@@ -948,3 +948,48 @@ def test_batched_harness_through_the_graph_equals_eager(cuda, tmp_path):
         a = read_png(os.path.join(str(tmp_path / "True"), f"{i}.png"))
         b = read_png(os.path.join(str(tmp_path / "False"), f"{i}.png"))
         assert np.array_equal(a, b), i
+
+
+def test_train_step_card_equals_cpu(cuda, monkeypatch):
+    """Four train-step calls (grad_accum 2, clip, decay) on the card, where
+    AdamW is the fused CUDA one, against the same calls on the CPU: loss and
+    grad norm within rtol 1e-4, the parameters within rtol 1e-4 and 1e-2
+    of the rate (tests/test_torch_parallel.py's tolerance: Adam divides
+    each gradient by its own scale, so float32 noise in a near-zero
+    gradient element reaches its update at that scale; one qk-norm bias
+    element moved 2.1e-5 off here on an H100)."""
+    from sjd_tpu_torch.models.transformer import DecoderConfig, init_params
+    from sjd_tpu_torch.parallel import TrainConfig, make_mesh, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = DecoderConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+                        num_heads=4, num_kv_heads=4, head_dim=16, qk_norm=True,
+                        dtype=torch.float32, max_position_embeddings=64)
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=1, total_steps=10, grad_accum=2,
+                       grad_clip=1.0, weight_decay=0.1)
+    g = torch.Generator().manual_seed(1)
+    batches = []
+    for _ in range(4):
+        ids = torch.randint(0, 256, (2, 24), generator=g)
+        labels = ids.clone()
+        labels[:, :4] = -100
+        batches.append((ids, labels, torch.ones_like(ids, dtype=torch.bool)))
+    runs = []
+    for dev in ("cpu", cuda):
+        init_fn, step_fn = make_train_step(make_mesh(device=dev), cfg, tcfg, device=dev)
+        params = init_params(0, cfg, device="cpu")
+        state = init_fn(params={k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                                    else v.to(dev)) for k, v in params.items()})
+        metrics = []
+        for b in batches:
+            state, m = step_fn(state, *b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((metrics, {n: p.detach().cpu() for n, p in state.opt_state.names.items()},
+                     state.opt_state.adamw.defaults["fused"]))
+    (want_m, want_p, fused_cpu), (got_m, got_p, fused_card) = runs
+    assert fused_card and not fused_cpu
+    for got, want in zip(got_m, want_m):
+        for k in ("loss", "grad_norm", "ce", "z_loss"):
+            assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), (k, got[k], want[k])
+    for n, t in want_p.items():
+        torch.testing.assert_close(got_p[n], t, rtol=1e-4, atol=1e-2 * tcfg.learning_rate)
