@@ -202,7 +202,41 @@ earlier model freed (under 1 GB allocated before train_7b):
   38. train_cli - python -m sjd_tpu_torch.parallel.finetune (tiny model,
                20 steps) as a process, then resumed to 30.
 
-Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31, 31b and 36 starts from kernel launch counts of 0 and
+and tensor- and data-parallel decoding (sjd_tpu_torch/parallel: shard_params,
+decode_attention_tp, the TP forward, row_sharding), two ranks spawned on the
+one card over gloo (NCCL refuses two ranks on one device), every earlier
+model freed; the unsharded references are computed in this process while
+phases 5 and 11 hold their models, under build/chip_smoke_tp/ (removed at
+the end):
+
+  3f. kernels_tp - both TPU kernels at one rank's local shapes under TP=2:
+               the 7B's 16 of 32 heads (int8 cache of the 512px image) and
+               the 34B's 32 query heads over 4 KV heads (bf16, S = 1, W = 4);
+  39. tp_collectives - the gloo round trip of the 7B's all-reduce and of
+               its logits' all-gather, on the card's tensors;
+  40. tp_window - the 7B on a 1 x 2 mesh, bf16 and W4A16, each rank its
+               shard (shard_params): the prompt prefilled, one 16-token
+               window; each rank's logits within 5% of the largest
+               unsharded logit and the argmax equal at 14 of 16 positions,
+               the ranks bit-equal, each TPU kernel 32 launches per rank in
+               the window's forward (and K1 225 on W4A16);
+  41. tp_generate - one 512px image on the bf16 shards cut to their first 2
+               layers (each layer costs two gloo round trips per forward),
+               cuda_graph=False: the ranks' tokens equal, 1024 image tokens,
+               the image decoded on rank 0, 2 launches of each TPU kernel
+               per forward per rank; NFE, ms per forward, wall and the
+               summed peak memory;
+  42. tp_34b - python -m torch.distributed.run --nproc-per-node 2 -m
+               sjd_tpu_torch.parallel.tp_decode --layers 24 --backend gloo
+               --max-len 64 (Chameleon-34B's full width at 24 of 48 layers:
+               both ranks on one card): exit 0, grammar_ok, the ranks'
+               tokens equal, 24 launches of each TPU kernel per forward;
+  43. dp_serve - the W4A16 7B on a 2 x 1 mesh, each data rank its own graph
+               engine: 6 requests at 256px through 4 slots with
+               ContinuousBatcher(row_sharding=mesh), completions and refills
+               on every rank equal to the one-process batcher's.
+
+Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31, 31b, 36 and 40-43 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -332,7 +366,7 @@ def phase_build():
 
 def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
                    Hkv: int = 32, NL: int = 32, layer: int = 17, qk_norm: bool = True,
-                   D: int = 128, quantize: bool = True, rope=None):
+                   D: int = 128, quantize: bool = True, rope=None, T: int = 16):
     """``fused_epilogue_into_cache`` against its plain version over a whole
     ``NL``-layer cache (int8 with scales, or bf16 without ``quantize``)
     filled with sentinels, at ``S`` rows and per-row fills ``ends``, with or
@@ -344,7 +378,6 @@ def _epilogue_case(dev, case: str, S: int, L: int, ends, seed: int, H: int = 32,
     from sjd_tpu_torch.ops.fused_epilogue import (
         fused_epilogue_into_cache, fused_epilogue_into_cache_plain)
 
-    T = 16
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*shape):
@@ -446,7 +479,7 @@ def phase_epilogue(dev):
 
 def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: int,
                      H: int = 32, Hkv: int = 32, NL: int = 32, layer: int = 17,
-                     D: int = 128):
+                     D: int = 128, W: int = 16):
     """``decode_attention`` against its plain version on an ``NL``-layer
     cache of ``S`` rows and ``L`` rows each, under the mask ``valid``, for
     each per-row fill in ``fills`` and each cache kind; times the kernel,
@@ -459,7 +492,6 @@ def _attention_cases(dev, case: str, S: int, L: int, valid, fills, kinds, seed: 
         _entry, decode_attention, decode_attention_plain, decode_masks)
     from sjd_tpu_torch.ops.fused_epilogue import quantize_rows
 
-    W = 16
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((S, W, H, D), generator=g, device=dev).to(torch.bfloat16)
     kq, ks = quantize_rows(torch.randn((S, NL, L, Hkv, D), generator=g, device=dev))
@@ -3550,6 +3582,473 @@ def phase_train_cli(dev, root: str):
           f"final {runs[1]['final']}")
 
 
+# -- tensor- and data-parallel decoding ----------------------------------------
+
+TP_DIR = os.path.join(HERE, "build", "chip_smoke_tp")
+TP_RANKS = 2
+TP_SIZE = 512  # tp_generate's image
+# tp_generate's depth: each layer costs two gloo round trips per forward,
+# 1.2-13.1 ms each between two ranks on one H100 80GB HBM3 (PERF.md §5), so
+# the 512px image took 105-209 s at 32 layers and 141 s at 8; tp_window
+# keeps all 32
+TP_GENERATE_LAYERS = 2
+DP_SIZE = 256  # dp_serve's images
+DP_REQUESTS, DP_SLOTS = 6, 4
+# the 34B command line's layers: both ranks share one card, and all 48 bf16
+# layers (68.6 GB) would leave under 10 GB for two CUDA contexts, cuBLAS
+# workspaces, the draw's temporaries and the caches
+TP_34B_LAYERS = 24
+
+
+def _window_logits(params, cfg, dev, prompt_ids, L: int = 512):
+    """The prompt prefilled (row 1 its CFG uncond half, the prompt masked
+    down to its last token), then one TP_WINDOW-token window of image
+    tokens drawn from a fixed seed: (the window's f32 logits [2, W, V] on
+    the host, each kernel's launches in that window's forward). ``params``
+    may be one rank's shard (``parallel.shard_params``); its cache then
+    holds the rank's KV heads."""
+    import torch
+
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.chameleon import IMAGE_VOCAB_END, IMAGE_VOCAB_START
+    from sjd_tpu_torch.ops import launch_counts
+
+    S, P, W = 2, len(prompt_ids), 16
+    g = torch.Generator().manual_seed(5)  # on the host: the same window everywhere
+    win = torch.randint(IMAGE_VOCAB_START, IMAGE_VOCAB_END + 1, (1, W), generator=g)
+    ids = torch.cat([torch.tensor([prompt_ids]), win], 1).expand(S, P + W).to(dev)
+    valid = torch.ones((S, L), dtype=torch.bool, device=dev)
+    valid[1, :P - 1] = False
+    pos = torch.clamp_min(torch.cumsum(valid[:, :P].int(), 1) - 1, 0)
+    pos_w = pos[:, -1:] + 1 + torch.arange(W, device=dev)
+    rope = pt.make_rope_table(cfg, L, device=dev)
+    with torch.no_grad():
+        kv = pt.init_kv_cache(cfg, S, L, device=dev,
+                              model_size=getattr(params, "model_size", 1))
+        zero = torch.zeros((S,), dtype=torch.int32, device=dev)
+        pt.forward(params, cfg, ids[:, :P], pos, kv, zero, valid, rope)
+        _zero_launch_counts()
+        logits = pt.forward(params, cfg, ids[:, P:], pos_w, kv, zero + P, valid, rope).logits
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    return logits.cpu(), launches
+
+
+def phase_tp_reference(dev, model, label: str) -> None:
+    """The unsharded window of ``tp_window`` on the model this process
+    holds, saved under TP_DIR for the ranks' check."""
+    import torch
+
+    ids = model.extras["prompt_ids_fn"](PROMPT)
+    t0 = time.time()
+    logits, launches = _window_logits(model.params, model.engine.model_cfg, dev, ids)
+    os.makedirs(TP_DIR, exist_ok=True)
+    torch.save({"ids": ids, "logits": logits}, os.path.join(TP_DIR, f"window_{label}.pt"))
+    emit("tp_reference", weights=label, prompt_rows=len(ids), launches=launches,
+         seconds=time.time() - t0)
+
+
+def _dp_requests():
+    """dp_serve's 6 requests at DP_SIZE px (12 text ids and the image
+    header each) and their seeds."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    prompts = np.asarray([list(map(int, rng.integers(9000, 13000, 12)))
+                          + lumina_ids(DP_SIZE)[12:] for _ in range(DP_REQUESTS)], np.int32)
+    return prompts, [601 + i for i in range(DP_REQUESTS)]
+
+
+def _dp_serve(dev, params, cfg, row_sharding=None) -> dict:
+    """The 6 requests through ContinuousBatcher (DP_SLOTS slots, chunks of
+    64, each stopped at its image's end) on a graph engine: completions,
+    refills, NFE, the engine's steps and the launches that ran."""
+    import torch
+
+    from sjd_tpu_torch.core.serving import ContinuousBatcher
+    from sjd_tpu_torch.models.chameleon import IMAGE_END_ID, lumina_engine
+    from sjd_tpu_torch.ops import launch_counts
+
+    prompts, seeds = _dp_requests()
+    eng = lumina_engine(target_size=DP_SIZE, model_cfg=cfg, device=dev)
+    eng.config = dataclasses.replace(eng.config, eos_id=IMAGE_END_ID)
+    batcher = ContinuousBatcher(eng, params, chunk_steps=64, row_sharding=row_sharding)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.time()
+    done = batcher.run(None, prompts, batch=DP_SLOTS, seeds=seeds)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    st = eng.stats
+    return dict(done=[(c.prompt_index, c.tokens.tolist(), int(c.gen_count)) for c in done],
+                refills=[(sorted(r["refilled"].items()), r["live"]) for r in batcher.last_refills],
+                nfe=batcher.last_nfe, accept_hist=batcher.last_accept_hist.tolist(),
+                seconds=seconds, launches=st.executed(launch_counts()), captures=st.captures,
+                replays=st.replays, eager_steps=st.eager_steps,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, table=per_forward(params, cfg))
+
+
+def phase_dp_reference(dev, model) -> None:
+    """dp_serve's stream on one process, on the W4A16 7B this process
+    holds, saved under TP_DIR."""
+    import torch
+
+    out = _dp_serve(dev, model.params, model.engine.model_cfg)
+    torch.save(out, os.path.join(TP_DIR, "dp_reference.pt"))
+    emit("dp_reference", requests=DP_REQUESTS, slots=DP_SLOTS, size=DP_SIZE, nfe=out["nfe"],
+         gen_counts=[c[2] for c in out["done"]], seconds=out["seconds"])
+
+
+def _collective_ms(dev, group, reps: int = 50) -> dict:
+    """Host-clock ms of one gloo collective over ``group`` on the card's
+    tensors, as the TP forward issues them on the 7B: the all-reduce of a
+    window's [2, 16, 4096] bf16 partial sum, and the all-gather of its
+    [2, 16, 32768] f32 vocabulary shard (gloo stages both through host
+    memory)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones((2, 16, 4096), dtype=torch.bfloat16, device=dev)
+    part = torch.ones((2 * 16, 32768), dtype=torch.float32, device=dev)
+    whole = torch.empty((TP_RANKS * 2 * 16, 32768), dtype=torch.float32, device=dev)
+    out = {}
+    for name, call in (("all_reduce_bf16_2x16x4096", lambda: dist.all_reduce(x, group=group)),
+                       ("all_gather_f32_2x16x32768",
+                        lambda: dist.all_gather_into_tensor(whole, part, group=group))):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def _tp_generate(dev, model, params, cfg) -> dict:
+    """One TP_SIZE px image on the first TP_GENERATE_LAYERS layers of this
+    rank's shard, every step eager: tokens, NFE, the launches that ran,
+    wall seconds, peak memory; rank 0 decodes the image."""
+    import torch
+    import torch.distributed as dist
+
+    from sjd_tpu_torch.data.item_processor import split_generation
+    from sjd_tpu_torch.models.chameleon import IMAGE_END_ID, lumina_engine
+    from sjd_tpu_torch.ops import launch_counts
+    from sjd_tpu_torch.parallel import LocalParams
+
+    n = TP_GENERATE_LAYERS
+    params = LocalParams(dict(params, layers={k: v[:n] for k, v in params["layers"].items()}),
+                         params.axis, params.mesh)
+    cfg = dataclasses.replace(cfg, num_layers=n)
+
+    eng = lumina_engine(target_size=TP_SIZE, cuda_graph=False, model_cfg=cfg, device=dev)
+    eng.config = dataclasses.replace(eng.config, eos_id=IMAGE_END_ID)
+    ids = model.extras["prompt_ids_fn"](PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.time()
+    res = eng.generate(params, 0, torch.tensor([ids], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    toks = res.tokens[0, :int(res.length[0])].tolist()
+    spans = [s for kind, s in split_generation(toks) if kind == "image"]
+    out = dict(tokens=toks, nfe=int(res.nfe), wall_s=wall, ms_per_forward=1e3 * wall / res.nfe,
+               launches=launches, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               table=per_forward(params, cfg),
+               image_span=spans[-1] if spans else [], image_shape=None)
+    if dist.get_rank() == 0:
+        out["image_shape"] = list(model.extras["decode_image_fn"](toks).shape)
+    return out
+
+
+def _tp_rank(dev, out_dir: str) -> dict:
+    """One rank of the 1 x TP_RANKS mesh: the gloo round trips, then the
+    bf16 7B (the window and one image) and the W4A16 7B (the window), each
+    loaded whole from the seed, sharded and freed."""
+    import torch
+
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.parallel import decoder_param_specs, make_mesh, shard_params
+
+    mesh = make_mesh(data=1, model=TP_RANKS, device=dev)
+    out = {"collective_ms": _collective_ms(dev, mesh.get_group("model"))}
+    for label, quantize in (("bf16", False), ("w4a16", 4)):
+        ref = torch.load(os.path.join(out_dir, f"window_{label}.pt"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        model = load_lumina_mgpt(target_size=TP_SIZE, quantize=quantize, device=dev)
+        cfg = model.engine.model_cfg
+        local = shard_params(model.params, mesh, decoder_param_specs(cfg, tp=True), cfg=cfg)
+        load_s = time.time() - t0
+        logits, launches = _window_logits(local, cfg, dev, ref["ids"])
+        out[f"window_{label}"] = dict(logits=logits, launches=launches, load_s=load_s,
+                                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                      layers=cfg.num_layers, table=per_forward(local, cfg))
+        if label == "bf16":
+            out["generate"] = _tp_generate(dev, model, local, cfg)
+        del model, local
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(dev) -> dict:
+    """One data rank of the TP_RANKS x 1 mesh: the whole W4A16 7B and its
+    own graph engine, the stream through ContinuousBatcher(row_sharding)."""
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=TP_RANKS, model=1, device=dev)
+    model = load_lumina_mgpt(target_size=DP_SIZE, quantize=4, device=dev)
+    out = _dp_serve(dev, model.params, model.engine.model_cfg, row_sharding=mesh)
+    out["data_rank"] = mesh.get_local_rank("data")
+    return out
+
+
+def _rank_main(rank: int, world: int, port: int, job: str, out_dir: str) -> None:
+    """A spawned rank: joins the gloo group (every rank on the one card),
+    runs ``job`` ("tp" or "dp") and saves its results under ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from sjd_tpu_torch.parallel.dist import init_distributed
+
+    torch.cuda.set_device(0)  # before any CUDA work: the ranks share the card
+    dev = torch.device("cuda", 0)
+    init_distributed(f"127.0.0.1:{port}", world, rank, device=dev, backend="gloo")
+    t0 = time.time()
+    out = _tp_rank(dev, out_dir) if job == "tp" else _dp_rank(dev)
+    out.update(rank=rank, seconds=time.time() - t0)
+    torch.save(out, os.path.join(out_dir, f"{job}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(job: str, timeout: int = 600) -> list:
+    """TP_RANKS spawned processes running ``job`` together; each rank's
+    results. A rank that fails or outlives ``timeout`` fails the phase, and
+    no rank outlives the call."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, TP_RANKS, port, job, TP_DIR))
+             for r in range(TP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"{job} ranks exited {[p.exitcode for p in procs]} (timeout {timeout} s)")
+    return [torch.load(os.path.join(TP_DIR, f"{job}_rank{r}.pt")) for r in range(TP_RANKS)]
+
+
+def phase_tp(dev) -> dict:
+    """tp_window and tp_generate: the ranks of a 1 x 2 mesh on one card
+    over gloo. Each rank loads the 7B whole from the seed and keeps its
+    shard (shard_params). tp_window: the prompt prefilled, then one
+    16-token window, bf16 and W4A16; each rank's logits within 5% of the
+    largest unsharded logit (phase_tp_reference's) with the argmax equal at
+    14 of 16 positions of each row, the ranks' logits bit-equal, and each
+    rank's window forward launching each TPU kernel once per layer (and K1
+    225 times on W4A16). tp_generate: one 512px image on the bf16 shards'
+    first TP_GENERATE_LAYERS layers, every step eager (cuda_graph=False
+    under a model axis): the ranks' tokens equal, 1024 image tokens in
+    grammar, the image decoded on rank 0, each TPU kernel once per layer
+    per forward on each rank. Returns rank 0's generate launches."""
+    import torch
+
+    t0 = time.time()
+    ranks = _spawn_ranks("tp")
+    seconds = time.time() - t0
+    emit("tp_collectives", backend="gloo", ranks=TP_RANKS,
+         ms_per_collective=[r["collective_ms"] for r in ranks])
+    for label in ("bf16", "w4a16"):
+        want = torch.load(os.path.join(TP_DIR, f"window_{label}.pt"))["logits"]
+        scale = want.abs().max().item()
+        got = [r[f"window_{label}"] for r in ranks]
+        errs = [(g["logits"] - want).abs().max().item() for g in got]
+        agree = [(g["logits"].argmax(-1) == want.argmax(-1)).sum(-1).tolist() for g in got]
+        # where a rank's argmax differs: how far below the unsharded top
+        # logit the unsharded logit of the rank's choice lies (a near-tie
+        # is within the error)
+        top = want.max(-1).values
+        gaps = [(top - want.gather(-1, g["logits"].argmax(-1, keepdim=True))[..., 0])
+                .max().item() for g in got]
+        equal = all(torch.equal(g["logits"], got[0]["logits"]) for g in got)
+        table = got[0]["table"]
+        emit("tp_window", weights=label, mesh=[1, TP_RANKS], layers=got[0]["layers"],
+             max_abs_err=errs, max_abs_logit=scale, tolerance=0.05 * scale,
+             argmax_agree=agree, argmax_gap=gaps, ranks_bit_equal=equal,
+             launches=[g["launches"] for g in got], launches_expected=table,
+             load_s=[g["load_s"] for g in got], peak_gb=[g["peak_gb"] for g in got],
+             peak_gb_sum=sum(g["peak_gb"] for g in got))
+        check(all(math.isfinite(e) and e <= 0.05 * scale for e in errs),
+              f"tp_window {label}: the ranks' logits are {errs} from the unsharded forward")
+        check(all(n >= 14 for a in agree for n in a), f"tp_window {label}: argmax agrees {agree}")
+        check(equal, f"tp_window {label}: the ranks' logits differ")
+        for g in got:
+            for k, n in table.items():
+                check(g["launches"][k] == n, f"tp_window {label}: {k} launched "
+                                             f"{g['launches'][k]} times, not {n}")
+    gen = [r["generate"] for r in ranks]
+    toks = gen[0]["tokens"]
+    span = gen[0]["image_span"]
+    grid = TP_SIZE // 16
+    image_tokens = sum(4 <= t <= 8195 for t in span)
+    table = gen[0]["table"]
+    emit("tp_generate", mesh=[1, TP_RANKS], size=TP_SIZE, layers=TP_GENERATE_LAYERS,
+         cuda_graph=False,
+         tokens_generated=len(toks) - len(lumina_ids(TP_SIZE)), nfe=gen[0]["nfe"],
+         ms_per_forward=[g["ms_per_forward"] for g in gen], wall_s=[g["wall_s"] for g in gen],
+         peak_gb=[g["peak_gb"] for g in gen], peak_gb_sum=sum(g["peak_gb"] for g in gen),
+         image_tokens=image_tokens,
+         image_shape=gen[0]["image_shape"], launches=[g["launches"] for g in gen],
+         launches_expected={k: n * gen[0]["nfe"] for k, n in table.items()},
+         ranks_equal=all(g["tokens"] == toks for g in gen), phase_s=seconds)
+    check(all(g["tokens"] == toks and g["nfe"] == gen[0]["nfe"] for g in gen),
+          "tp_generate: the ranks generated different tokens")
+    check(image_tokens == grid * grid and span[-1] == 8196,
+          f"tp_generate: {image_tokens} image tokens, not {grid * grid} and <eoss>")
+    check(gen[0]["image_shape"] == [TP_SIZE, TP_SIZE, 3],
+          f"tp_generate: image {gen[0]['image_shape']}")
+    for g in gen:
+        for k, n in table.items():
+            check(g["launches"][k] == n * g["nfe"],
+                  f"tp_generate: {k} launched {g['launches'][k]} times in {g['nfe']} forwards")
+    return gen[0]["launches"]
+
+
+def phase_tp_34b(dev, layers: int = TP_34B_LAYERS, max_len: int = 64) -> dict:
+    """python -m torch.distributed.run --nproc-per-node 2 -m
+    sjd_tpu_torch.parallel.tp_decode --layers 24 --backend gloo --max-len 64:
+    Chameleon-34B's full width at 24 of its 48 layers, both ranks on the
+    card. It must exit 0 with grammar_ok, both ranks' tokens equal and each
+    TPU kernel launched once per layer per forward on each rank. Returns
+    rank 0's launches."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(TP_RANKS),
+         "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+         "-m", "sjd_tpu_torch.parallel.tp_decode", "--layers", str(layers), "--backend",
+         "gloo", "--max-len", str(max_len)],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"tp_decode exited {out.returncode}: {out.stderr[-3000:]}")
+    rep = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")][-1]
+    ranks = rep["ranks"]
+    emit("tp_34b", seconds=time.time() - t0,
+         **{k: v for k, v in rep.items() if k != "ranks"},
+         ranks=ranks, peak_gb_sum=sum(r["peak_bytes"] for r in ranks) / 1e9)
+    check(rep["grammar_ok"] and rep["ranks_equal"], f"tp_34b: grammar_ok "
+          f"{rep['grammar_ok']}, ranks_equal {rep['ranks_equal']}")
+    for r in ranks:
+        for k in ("fused_epilogue", "decode_attention"):
+            check(r["launches"][k] == layers * rep["nfe"],
+                  f"tp_34b rank {r['rank']}: {k} launched {r['launches'][k]} times in "
+                  f"{rep['nfe']} forwards of {layers} layers")
+    return ranks[0]["launches"]
+
+
+def phase_dp_serve(dev) -> None:
+    """dp_serve: the W4A16 7B on a 2 x 1 mesh, each data rank the whole
+    model and its own graph engine over its 2 of the 4 slots; the 6
+    requests' completions (order, tokens, gen_count) and the refills (which
+    slot took which request, and which were live) on every rank equal the
+    one-process batcher's (phase_dp_reference); each rank's launches one
+    per layer per forward it ran (its prefill, its refills, its steps)."""
+    import torch
+
+    t0 = time.time()
+    ranks = _spawn_ranks("dp")
+    want = torch.load(os.path.join(TP_DIR, "dp_reference.pt"))
+    same = [r["done"] == want["done"] for r in ranks]
+    same_refills = [r["refills"] == want["refills"] for r in ranks]
+    forwards = []
+    for r in ranks:
+        mine = range(r["data_rank"] * DP_SLOTS // TP_RANKS,
+                     (r["data_rank"] + 1) * DP_SLOTS // TP_RANKS)
+        refills = sum(any(b in mine for b, _ in slots) for slots, _ in r["refills"])
+        forwards.append(1 + refills + r["eager_steps"] + r["replays"])
+    emit("dp_serve", mesh=[TP_RANKS, 1], requests=DP_REQUESTS, slots=DP_SLOTS, size=DP_SIZE,
+         chunk_steps=64, equal_to_one_process=same, refills_equal=same_refills,
+         nfe=[r["nfe"] for r in ranks], nfe_one_process=want["nfe"],
+         gen_counts=[c[2] for c in ranks[0]["done"]], serve_s=[r["seconds"] for r in ranks],
+         serve_s_one_process=want["seconds"], captures=[r["captures"] for r in ranks],
+         replays=[r["replays"] for r in ranks], forwards=forwards,
+         launches=[r["launches"] for r in ranks], peak_gb=[r["peak_gb"] for r in ranks],
+         peak_gb_sum=sum(r["peak_gb"] for r in ranks), phase_s=time.time() - t0)
+    check(all(same), "dp_serve: the data-parallel stream differs from one process'")
+    check(all(same_refills), "dp_serve: the refills differ from one process'")
+    for r, n in zip(ranks, forwards):
+        for k, per in r["table"].items():
+            check(r["launches"][k] == per * n,
+                  f"dp_serve: {k} launched {r['launches'][k]} times in {n} forwards")
+
+
+def phase_kernels_tp(dev) -> list:
+    """Both TPU kernels at one rank's local shapes under TP=2 (what
+    decode_attention_tp and the epilogue see on each rank): the 7B of
+    tp_generate (16 query over 16 KV heads, 32 layers, int8 cache, the 512px
+    buffer of 1536 rows, S = 2, W = 16) and the 34B of tp_34b (32 query
+    heads over 4 KV heads, GQA group 8, swin-norm's qk-norm, 24 layers, bf16
+    cache, S = 1, W = 4, an 88-row buffer). Returns the two cases' rows of
+    the kernels line."""
+    import torch
+
+    src = dict(route="cuda")
+    seven = dict(H=16, Hkv=16, NL=32, layer=31)
+    ep7 = _epilogue_case(dev, "tp2_7b", 2, 1536, (700, 700), 61, **seven)
+    valid = torch.ones((2, 1536), dtype=torch.bool, device=dev)
+    valid[1, :14] = False  # the CFG uncond half masks its prompt rows
+    at7 = _attention_cases(dev, "tp2_7b", 2, 1536, valid, [(150, 150), (700, 700), (1040, 1040)],
+                           ("int8",), 62, **seven)
+    big = dict(H=32, Hkv=4, NL=TP_34B_LAYERS, layer=TP_34B_LAYERS - 1)
+    ep34 = [_epilogue_case(dev, "tp2_34b", 1, 88, (e,), 63 + i, quantize=False, T=4, **big)
+            for i, e in enumerate((11, 80))]
+    at34 = _attention_cases(dev, "tp2_34b", 1, 88, torch.ones((1, 88), dtype=torch.bool,
+                                                              device=dev),
+                            [(11,), (80,)], ("bf16",), 65, W=4, **big)
+    main7 = next(r for r in at7 if r["fill"][0] == 700)
+    return [
+        _kernel_row(ep7, name="fused_epilogue", case="tp2_7b",
+                    source="sjd_tpu_torch/csrc/fused_epilogue.cu",
+                    replaces="sjd_tpu/ops/fused_epilogue.py:35",
+                    max_abs_err=max(ep7["max_abs_err"].values()), **src),
+        _kernel_row(main7, name="decode_attention", case="tp2_7b",
+                    source="sjd_tpu_torch/csrc/decode_attention.cu",
+                    replaces="sjd_tpu/ops/decode_attention.py:268",
+                    max_abs_err=max(r["max_abs_err"] for r in at7), **src),
+        _kernel_row(ep34[1], name="fused_epilogue", case="tp2_34b",
+                    source="sjd_tpu_torch/csrc/fused_epilogue.cu",
+                    replaces="sjd_tpu/ops/fused_epilogue.py:35",
+                    max_abs_err=max(max(r["max_abs_err"].values()) for r in ep34), **src),
+        _kernel_row(at34[1], name="decode_attention", case="tp2_34b",
+                    source="sjd_tpu_torch/csrc/decode_attention.cu",
+                    replaces="sjd_tpu/ops/decode_attention.py:268",
+                    max_abs_err=max(r["max_abs_err"] for r in at34), **src),
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -3577,11 +4076,17 @@ def main() -> int:
     kernels += [phase_epilogue_emu3(dev), phase_attention_emu3(dev)]
     kernels += [phase_epilogue_llamagen(dev), phase_attention_llamagen(dev)]
     kernels += [phase_epilogue_llamagen_3b(dev), phase_attention_llamagen_3b(dev)]
+    kernels += phase_kernels_tp(dev)
     phase_forward(dev)
     phase_quant_forward(dev)
+    # the unsharded references of the tensor- and data-parallel phases at the
+    # end, computed while this process holds the models, under TP_DIR
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
     model = phase_load(dev)
     ids = model.extras["prompt_ids_fn"](PROMPT)
     cfg = model.engine.model_cfg
+    phase_tp_reference(dev, model, "bf16")
     phase_graph(dev, model.params, cfg, ids)
     launches = phase_generate(dev, model)
     phase_serve(dev, model)
@@ -3607,6 +4112,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     qmodel = phase_load(dev, quantize=4, label="quant_load")
     qcfg = qmodel.engine.model_cfg
+    phase_tp_reference(dev, qmodel, "w4a16")
+    phase_dp_reference(dev, qmodel)
     phase_graph(dev, qmodel.params, qcfg, ids, label="quant_graph")
     a16 = phase_generate(dev, qmodel, label="quant_generate")
     phase_widths(dev, qmodel.params, qcfg, "widths_w4a16", hold=True)
@@ -3708,7 +4215,19 @@ def main() -> int:
         phase_train_cli(dev, TRAIN_DIR)
     finally:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    by_case = {"emu3": e_launches, "llamagen": l_launches, "llamagen_3b": l3_launches}
+    # tensor and data parallelism: ranks spawned on the one card over gloo,
+    # every earlier model freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    try:
+        tp_launches = phase_tp(dev)
+        tp34_launches = phase_tp_34b(dev)
+        phase_dp_serve(dev)
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    by_case = {"emu3": e_launches, "llamagen": l_launches, "llamagen_3b": l3_launches,
+               "tp2_7b": tp_launches, "tp2_34b": tp34_launches}
     for k in kernels:
         if k.get("case") in by_case:
             k["launches"] = by_case[k["case"]][k["name"]]

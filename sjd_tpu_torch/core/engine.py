@@ -38,6 +38,21 @@ into the graph's input buffers), so a slot's trajectory depends on its own
 generator alone, on either path, and ``refill`` can give a slot a new
 generator without a recapture.
 
+Tensor parallelism: ``params`` may be one rank's shard of a
+tensor-parallel tree (``parallel.sharding.shard_params``' ``LocalParams``,
+or a DTensor tree, made local once per params object and kept, as the
+graph is). Each rank of the model axis then runs the same loop on the same
+slots with its own cache of its KV heads; the forward's logits are
+gathered whole on every rank, and the ranks draw from the same per-slot
+generators, so every host-side choice is the same on each. At the end of
+each ``generate``/``resume`` the ranks' tokens and lengths are compared and
+any difference raises. Under a model axis of more than one rank the step
+runs eagerly: ``cuda_graph=True`` on CUDA raises (a gloo collective
+cannot be captured, and the capture over NCCL is not written), so the
+caller passes ``cuda_graph=False``. Data parallelism needs no collective
+inside the step: each data rank runs its own engine on its own slots
+(``core.serving``'s ``row_sharding``) and replays its own graph.
+
 A prompt enters as token ids or, for LlamaGen's conditioning prefix, as
 embeddings (``prompt_embeds``, with zero placeholder ids of the same width
 in the token buffer); only the prefill reads them, so the decode step and
@@ -192,6 +207,12 @@ class _Graph(NamedTuple):
     launches: Dict[str, int]  # kernel launches one replay runs
 
 
+def _model_size(params) -> int:
+    """The model axis' ranks of a params tree (1 unless it is one rank's
+    shard, ``parallel.sharding.LocalParams``)."""
+    return getattr(params, "model_size", 1)
+
+
 def _add(into: Dict, counts: Dict, times: int = 1) -> None:
     for k, n in counts.items():
         into[k] = into.get(k, 0) + times * n
@@ -243,6 +264,11 @@ class SJDEngine:
         self._warm: set = set()  # the widths whose warm-up step ran on self._state
         self._pool = None  # the graphs' shared memory pool
         self._stream = None  # the side stream of warm-up and capture
+        # the last params object given and what the forward computes with
+        # (parallel.sharding.local_tree: a DTensor tree made local once)
+        self._params_in: Any = None
+        self._params_local: Any = None
+        self._state_model_size = 1  # the model axis the state's cache was made for
         # batch -> GrammarState, for generate/refill calls that pass no
         # gstate; a family whose grammar needs a pre-armed state (Emu3's
         # grid) installs it, else the default init_state would leave that
@@ -282,6 +308,7 @@ class SJDEngine:
         one); with ``return_state`` and :meth:`resume` it chunks one
         generation into several calls with the same result. The returned
         state is the engine's own (module docstring)."""
+        params = self._local_params(params)
         prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds = \
             self._normalize_prompt_inputs(prompt, prompt_mask, neg_prompt, neg_mask, gstate,
                                           prompt_embeds, neg_prompt_embeds)
@@ -291,6 +318,7 @@ class SJDEngine:
             state = self._prefill_state(params, gens, prompt, prompt_mask,
                                         neg_prompt, neg_mask, gstate, embeds)
             self._run(params, state, cap)
+            self._check_ranks_agree(params, state)
         result = self._result_from_state(state)
         return (result, state) if return_state else result
 
@@ -300,10 +328,12 @@ class SJDEngine:
         to ``max_steps`` more forwards. ``state`` is updated in place; keep
         only the returned state, in the ``res, state = eng.resume(params,
         state, ...)`` pattern."""
+        params = self._local_params(params)
         cap = state.nfe + (max_steps if max_steps is not None
                            else self.config.resolved_nfe_cap())
         with torch.no_grad():
             self._run(params, state, cap)
+            self._check_ranks_agree(params, state)
         result = self._result_from_state(state)
         return (result, state) if return_state else result
 
@@ -337,6 +367,7 @@ class SJDEngine:
         ignored). With None each refilled slot gets one derived from its old
         generator's initial seed and the NFE, without advancing any
         generator."""
+        params = self._local_params(params)
         self._check_own(state)
         prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds = \
             self._normalize_prompt_inputs(prompt, prompt_mask, neg_prompt, neg_mask, gstate,
@@ -390,6 +421,32 @@ class SJDEngine:
         return state
 
     # -- implementation --------------------------------------------------------
+
+    def _local_params(self, params):
+        """What the forward computes with, made once per params object
+        (``parallel.sharding.local_tree``); under a model axis of more than
+        one rank, a CUDA graph is refused."""
+        if params is not self._params_in:
+            from ..parallel.sharding import local_tree  # parallel imports core
+
+            local = local_tree(params)
+            if _model_size(local) > 1 and self.cuda_graph and self.device.type == "cuda":
+                raise ValueError(
+                    "tensor-parallel params (a model axis of more than one rank) run the "
+                    "decode step eagerly: a gloo collective cannot be captured in a CUDA "
+                    "graph and the capture over NCCL is not written; build the engine "
+                    "with cuda_graph=False")
+            self._params_in, self._params_local = params, local
+        return self._params_local
+
+    @staticmethod
+    def _check_ranks_agree(params, state: EngineState) -> None:
+        """Under a model axis, every rank must hold the same tokens and
+        lengths: raise where they drifted apart."""
+        axis = getattr(params, "axis", None)
+        if axis is not None:
+            axis.check_equal(state.length, "lengths")
+            axis.check_equal(state.tokens, "tokens")
 
     @property
     def _S_factor(self) -> int:
@@ -482,11 +539,13 @@ class SJDEngine:
         align = 512 if kv_buf > 512 else 8
         kv_buf = ((kv_buf + align - 1) // align) * align
         S = B * self._S_factor
+        tp_size = _model_size(params)
         static = None
         if kv_buf_rows is None:
             old = self._state
-            shapes = ((B, L_buf), (S, kv_buf))
-            if old is not None and (old.tokens.shape, old.valid.shape) == shapes:
+            shapes = ((B, L_buf), (S, kv_buf), tp_size)
+            if old is not None and (old.tokens.shape, old.valid.shape,
+                                    self._state_model_size) == shapes:
                 static = old
             else:
                 # another shape: release the old state and its graph before
@@ -518,7 +577,11 @@ class SJDEngine:
 
         gstate0 = grammar_lib.update_state(self.spec, gstate0, prompt, prompt_mask)
 
-        kv = static.kv if static is not None else self.model.init_cache(S, kv_buf)
+        if static is not None:
+            kv = static.kv
+        else:
+            kv = (self.model.init_cache(S, kv_buf) if tp_size == 1 else
+                  self.model.init_cache(S, kv_buf, model_size=tp_size))
         valid = torch.ones((S, kv_buf), dtype=torch.bool, device=dev)
         valid[:, :P] = mask_s
         n_pad = (~mask_s).sum(1).to(torch.int32)
@@ -571,7 +634,7 @@ class SJDEngine:
         if kv_buf_rows is not None:
             return fresh
         if static is None:
-            self._state = fresh
+            self._state, self._state_model_size = fresh, tp_size
             return fresh
         # the engine's state: same tensors, new contents
         for f in dataclasses.fields(EngineState):

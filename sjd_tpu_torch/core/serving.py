@@ -15,8 +15,17 @@ drive thread admits requests at chunk boundaries and resolves each
 request's ``PendingResult``. Only the drive thread touches the device.
 Requests are token ids or, with ``embed_dim`` (LlamaGen), embedding rows.
 
-Data-parallel slots (``row_sharding``) are not ported yet:
-``StreamingBatcher`` refuses them.
+Data-parallel slots (``row_sharding``, both batchers): the value is a
+``parallel.make_mesh`` mesh (its 'data' axis) or a data-axis
+``ProcessGroup``. Every rank of the data axis runs the batcher; data rank d
+holds slots ``[d B/n, (d+1) B/n)`` in its own engine (and its own CUDA
+graph). At each chunk boundary the ranks all-gather the finished flags,
+the lengths and the NFE, and the token rows when a slot finished; every
+rank then harvests and refills in global slot order from the same queue,
+so the stream is the one-device stream: the NFE is the longest rank's (as
+one device steps until its last slot finishes), a refill counts one forward
+on every rank, and ``last_accept_hist`` is summed over the ranks. A mesh
+with a 'model' axis too runs each data rank's engine tensor-parallel.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.logging import MetricLogger
-from .engine import seeded_generator
+from .engine import seeded_generator, slot_generators
 
 _log = logging.getLogger("sjd_tpu_torch.serving")
 
@@ -49,6 +58,96 @@ def seed_generators(seeds: Sequence[int], device) -> List[torch.Generator]:
     return [seeded_generator(np.random.SeedSequence(int(s)), device) for s in seeds]
 
 
+class _DataAxis:
+    """``row_sharding`` resolved: this rank's slots of a batch and the
+    chunk boundary's gathers over the data axis (none on one rank)."""
+
+    def __init__(self, row_sharding: Any):
+        self.group, self.rank, self.size = None, 0, 1
+        if row_sharding is None:
+            return
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if isinstance(row_sharding, DeviceMesh):
+            names = row_sharding.mesh_dim_names or ()
+            if "data" not in names:
+                raise ValueError(f"row_sharding: a mesh without a 'data' axis ({names})")
+            n = row_sharding.mesh.shape[names.index("data")]
+            if n == 1:
+                return
+            group = row_sharding.get_group("data")
+        elif dist.is_initialized() and isinstance(row_sharding, dist.ProcessGroup):
+            group = row_sharding
+        else:
+            raise ValueError(f"row_sharding takes a parallel.make_mesh mesh or the data "
+                             f"axis' ProcessGroup, not {type(row_sharding).__name__}")
+        self.group, self.rank, self.size = (group, dist.get_rank(group),
+                                            dist.get_world_size(group))
+
+    def slots(self, B: int) -> slice:
+        """This rank's slots of a batch of ``B``."""
+        if B % self.size:
+            raise ValueError(f"a batch of {B} slots does not split over {self.size} data "
+                             "ranks")
+        n = B // self.size
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[size * rows, ...]: every rank's ``x`` in rank order."""
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        out = torch.empty((self.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return out
+
+    def boundary(self, state) -> tuple:
+        """(finished [B], lengths [B], NFE) of the whole batch, host values;
+        the NFE is the longest rank's."""
+        local = torch.stack([state.finished.to(torch.int64), state.length.to(torch.int64)], 1)
+        if self.size == 1:
+            both = local.cpu().numpy()
+            return both[:, 0].astype(bool), both[:, 1], state.nfe
+        nfe = torch.tensor([[state.nfe, 0]], dtype=torch.int64, device=local.device)
+        both = self._gather(torch.cat([local, nfe])).cpu().numpy()
+        per = both.reshape(self.size, -1, 2)
+        rows = per[:, :-1].reshape(-1, 2)
+        return rows[:, 0].astype(bool), rows[:, 1], int(per[:, -1, 0].max())
+
+    def token_rows(self, state, slots: Sequence[int]) -> Dict[int, np.ndarray]:
+        """The token rows of global ``slots`` (host copies)."""
+        if self.size == 1:
+            return {b: state.tokens[b].cpu().numpy().copy() for b in slots}
+        every = self._gather(state.tokens).cpu().numpy()
+        return {b: every[b].copy() for b in slots}
+
+    def sum(self, t: torch.Tensor) -> np.ndarray:
+        if self.size == 1:
+            return t.cpu().numpy().copy()
+        return self._gather(t[None]).sum(0).cpu().numpy()
+
+    def broadcast(self, obj):
+        """Data rank 0's ``obj`` on every rank."""
+        if self.size == 1:
+            return obj
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0),
+                                   group=self.group)
+        return box[0]
+
+
+def _local_generators(rng, B: int, sl: slice, device):
+    """This rank's slots of the per-slot generators one device would spawn
+    from ``rng`` (a seed or B generators)."""
+    if isinstance(rng, (int, np.integer)):
+        return slot_generators(int(rng), B, device)[sl]
+    return list(rng)[sl]
+
+
 class ContinuousBatcher:
     """Run a stream of same-width prompts through B engine slots.
 
@@ -56,15 +155,19 @@ class ContinuousBatcher:
     ``chunk_steps`` trades refill latency against host round trips: a
     finished slot idles for at most one chunk before it is refilled.
     ``make_gstate(indices) -> GrammarState`` supplies per-prompt grammar
-    state; by default the engine's own.
+    state; by default the engine's own. ``row_sharding`` spreads the slots
+    over the data axis (module docstring): every data rank calls ``run``
+    with the same arguments, and the completions come back on each.
     """
 
     def __init__(self, engine, params, *, chunk_steps: int = 128,
-                 make_gstate: Optional[Callable[[List[int]], Any]] = None):
+                 make_gstate: Optional[Callable[[List[int]], Any]] = None,
+                 row_sharding: Any = None):
         self.engine = engine
         self.params = params
         self.chunk_steps = chunk_steps
         self.make_gstate = make_gstate
+        self.rows = _DataAxis(row_sharding)
         # after run(): the decode steps by accepted length over the whole
         # stream, the forwards, and each refill as {"nfe", "refilled":
         # {slot: prompt index}, "live": [prompt indices still generating]}
@@ -92,12 +195,16 @@ class ContinuousBatcher:
         if prompt_masks is None:
             prompt_masks = np.ones((N, P), bool)
 
+        axis = self.rows
+        sl = axis.slots(B)  # this rank's slots
         slot_prompt: List[Optional[int]] = list(range(B))  # stream index per slot
         next_idx = B
         done: List[CompletedGeneration] = []
         self.last_refills = []
 
         def batch_rows(idx_list):
+            """This rank's rows of the [B] global ``idx_list``."""
+            idx_list = idx_list[sl]
             ids = torch.as_tensor(prompts[idx_list], dtype=torch.int32, device=dev)
             mask = torch.as_tensor(prompt_masks[idx_list], dtype=torch.bool, device=dev)
             neg = (torch.as_tensor(neg_prompts[idx_list], dtype=torch.int32, device=dev)
@@ -106,28 +213,30 @@ class ContinuousBatcher:
             return ids, mask, neg, g
 
         def gens_for(idx_list):
-            return seed_generators([seeds[i] for i in idx_list], dev)
+            return seed_generators([seeds[i] for i in idx_list[sl]], dev)
 
         ids, mask, neg, g = batch_rows(slot_prompt)
         _, state = eng.generate(
-            self.params, gens_for(slot_prompt) if seeds is not None else rng,
+            self.params, gens_for(slot_prompt) if seeds is not None
+            else rng if axis.size == 1 else _local_generators(rng, B, sl, dev),
             ids, prompt_mask=mask, neg_prompt=neg, gstate=g,
             max_steps=self.chunk_steps, return_state=True)
 
         def harvest(state) -> List[int]:
             """Collect finished slots into ``done``; return their indices.
-            The [B] flags come first; token rows only for the slots that
-            finished (most chunk boundaries harvest nothing), copied: the
-            state's buffers are reused."""
-            finished = state.finished.cpu().numpy()
+            The [B] flags come first; token rows only when a slot finished
+            (most chunk boundaries harvest nothing), copied: the state's
+            buffers are reused. Over a data axis the state's NFE becomes
+            the longest rank's."""
+            finished, lengths, state.nfe = axis.boundary(state)
             hits = [b for b in range(B) if finished[b] and slot_prompt[b] is not None]
             if not hits:
                 return []
-            lengths = state.length.cpu().numpy()
+            rows = axis.token_rows(state, hits)
             for b in hits:
                 n = int(lengths[b])
                 done.append(CompletedGeneration(
-                    prompt_index=slot_prompt[b], tokens=state.tokens[b, :n].cpu().numpy().copy(),
+                    prompt_index=slot_prompt[b], tokens=rows[b][:n],
                     gen_count=n - state.prompt_rows))
                 slot_prompt[b] = None
             return hits
@@ -146,21 +255,24 @@ class ContinuousBatcher:
                 # slots re-present their own prompt (ignored)
                 idx_rows = [slot_prompt[b] if slot_prompt[b] is not None else 0
                             for b in range(B)]
-                ids, mask, neg, g = batch_rows(idx_rows)
                 refill_mask = np.zeros((B,), bool)
                 refill_mask[refill_slots] = True
                 self.last_refills.append(dict(
                     nfe=state.nfe, refilled={b: slot_prompt[b] for b in refill_slots},
                     live=[slot_prompt[b] for b in range(B)
                           if b not in refill_slots and slot_prompt[b] is not None]))
-                state = eng.refill(
-                    self.params, state, ids, refill_mask, prompt_mask=mask,
-                    neg_prompt=neg, gstate=g,
-                    rng=gens_for(idx_rows) if seeds is not None else None)
+                if refill_mask[sl].any():
+                    ids, mask, neg, g = batch_rows(idx_rows)
+                    state = eng.refill(
+                        self.params, state, ids, refill_mask[sl], prompt_mask=mask,
+                        neg_prompt=neg, gstate=g,
+                        rng=gens_for(idx_rows) if seeds is not None else None)
+                else:  # another rank's refill: one forward of the batch's NFE
+                    state.nfe += 1
             _, state = eng.resume(self.params, state, max_steps=self.chunk_steps,
                                   return_state=True)
 
-        self.last_accept_hist = state.accept_hist.cpu().numpy().copy()
+        self.last_accept_hist = axis.sum(state.accept_hist)
         self.last_nfe = state.nfe
         done.sort(key=lambda c: c.prompt_index)
         return done
@@ -225,15 +337,25 @@ class StreamingBatcher:
     decode step would break the capture, so device tensors are refused.
     The drive thread makes the engine's device its current device (a
     per-thread setting).
+
+    With ``row_sharding`` (module docstring) every data rank builds the
+    batcher; clients ``submit`` on data rank 0 only. Its drive thread
+    broadcasts the requests it admits (and its stop) at each chunk
+    boundary, and every rank's drive thread admits them into the same
+    slots, so only drive threads call collectives. While idle, rank 0 sends
+    an empty admission every ``HEARTBEAT_S`` seconds, so that no rank waits
+    in a collective for long. A failed batch fails every request and stops
+    the batcher (the ranks cannot go on apart).
     """
+
+    HEARTBEAT_S = 1.0
 
     def __init__(self, engine, params, *, batch: int = 4, chunk_steps: int = 128,
                  prompt_width: int, neg_width: int = 0, embed_dim: int = 0,
                  make_gstate: Optional[Callable[[List[Optional[dict]]], Any]] = None,
                  row_sharding: Any = None):
-        if row_sharding is not None:
-            raise NotImplementedError("row_sharding (data-parallel slots) is not ported: the "
-                                      "port serves one device")
+        self.rows = _DataAxis(row_sharding)
+        self.rows.slots(batch)  # the batch must split over the data axis
         self.engine = engine
         self.params = params
         self.B = batch
@@ -282,6 +404,9 @@ class StreamingBatcher:
     def submit(self, prompt_ids=None, neg_prompt_ids=None, seed: int = 0,
                meta: Optional[dict] = None, prompt_embeds=None, neg_prompt_embeds=None,
                prompt_mask=None) -> PendingResult:
+        if self.rows.rank != 0:
+            raise ValueError("requests are submitted on data rank 0, whose drive thread "
+                             "admits them on every rank")
         neg = None
         if self.embed_dim:
             payload = self._embed_payload(prompt_ids, prompt_embeds, neg_prompt_embeds,
@@ -342,17 +467,18 @@ class StreamingBatcher:
         return [0] * pad + ids, [False] * pad + [True] * len(ids)
 
     def _rows(self, reqs: Dict[int, tuple], fill: tuple) -> dict:
-        """[B]-row engine arguments (host numpy or CPU tensors) and per-slot
-        seeds; slots outside ``reqs`` get ``fill``'s prompt."""
-        B = self.B
-        seeds = [reqs[b][3] if b in reqs else 0 for b in range(B)]
+        """This rank's rows of the engine arguments (host numpy or CPU
+        tensors) and per-slot seeds; slots outside ``reqs`` get ``fill``'s
+        prompt."""
+        slots = range(self.B)[self.rows.slots(self.B)]
+        seeds = [reqs[b][3] if b in reqs else 0 for b in slots]
         gstate = {}
         if self.make_gstate is not None:
             gstate["gstate"] = self.make_gstate([reqs[b][4] if b in reqs else None
-                                                 for b in range(B)])
+                                                 for b in slots])
         if self.embed_dim:
             pe_rows, ne_rows, mask_rows = [], [], []
-            for b in range(B):
+            for b in slots:
                 pe, ne, pm = reqs.get(b, fill)[1]
                 z = torch.zeros((self.P - pe.shape[0], self.embed_dim), dtype=pe.dtype)
                 pe_rows.append(torch.cat([z, pe]))
@@ -363,7 +489,7 @@ class StreamingBatcher:
                       prompt_mask=torch.stack(mask_rows), **gstate)
             return dict(kw=kw, seeds=seeds)
         ids_rows, mask_rows, neg_rows, negm_rows = [], [], [], []
-        for b in range(B):
+        for b in slots:
             r = reqs.get(b, fill)
             row, m = self._pad_row(r[1], self.P)
             ids_rows.append(row)
@@ -398,6 +524,8 @@ class StreamingBatcher:
         if self._cuda_index is not None:
             torch.cuda.set_device(self._cuda_index)
         B = self.B
+        axis = self.rows
+        sl = axis.slots(B)
         occupants: List[Optional[PendingResult]] = [None] * B
         fill: Optional[tuple] = None  # the prompt idle slots carry
         state = None
@@ -412,14 +540,38 @@ class StreamingBatcher:
             with self._lock:
                 self._in_flight = sum(o is not None for o in occupants)
 
+        def admit() -> tuple:
+            """(the requests admitted into the free slots, stop): decided by
+            data rank 0 (or the one rank) and sent to the others."""
+            if axis.rank == 0:
+                with self._lock:
+                    if state is None and not self._pending and not self._closed:
+                        if axis.size == 1:
+                            while not self._pending and not self._closed:
+                                self._wake.wait()
+                        else:
+                            self._wake.wait(self.HEARTBEAT_S)
+                    stop = (self._closed and not self._pending
+                            and all(o is None for o in occupants))
+                    new = [] if stop else take(sum(o is None for o in occupants))
+                if axis.size == 1:
+                    return new, stop
+                sent = axis.broadcast(([r[1:] + (r[0].index,) for r in new], stop))
+                return new, sent[1]
+            got, stop = axis.broadcast(None)
+            # this rank's handles of the admitted requests (resolved here,
+            # waited on only at rank 0)
+            return [(PendingResult(r[-1]),) + tuple(r[:-1]) for r in got], stop
+
         while True:
-            with self._lock:
-                while not self._pending and not self._closed and state is None:
-                    self._wake.wait()
-                if self._closed and not self._pending and all(o is None for o in occupants):
-                    return
-                new = take(B if state is None else sum(o is None for o in occupants))
             try:
+                if state is not None:
+                    self._harvest(state, occupants)
+                new, stop = admit()
+                if stop:
+                    with self._lock:
+                        self._closed = True
+                    return
                 if state is None:
                     if not new:
                         continue
@@ -437,44 +589,21 @@ class StreamingBatcher:
                     set_in_flight()
                     continue
 
-                # chunk boundary: harvest the finished occupied slots
-                finished = state.finished.cpu().numpy()
-                lengths = None
-                for b in range(B):
-                    h = occupants[b]
-                    if h is None or not finished[b]:
-                        continue
-                    if lengths is None:
-                        lengths = state.length.cpu().numpy()
-                    n = int(lengths[b])
-                    done = CompletedGeneration(
-                        prompt_index=h.index,
-                        tokens=state.tokens[b, :n].cpu().numpy().copy(),
-                        gen_count=n - state.prompt_rows)
-                    occupants[b] = None
-                    with self._lock:
-                        self._completed += 1
-                        self._tokens_out += done.gen_count
-                        self._metrics.update(latency_s=time.perf_counter() - h.submitted_at,
-                                             gen_tokens=done.gen_count)
-                    h._resolve(done)
-
-                # slots the harvest freed admit requests at this boundary
-                free = sum(o is None for o in occupants) - len(new)
-                if free > 0:
-                    with self._lock:
-                        new += take(free)
                 if new:
                     reqs = {}
                     for r in new:
                         b = occupants.index(None)
                         occupants[b] = r[0]
                         reqs[b] = r
-                    rows = self._rows(reqs, fill)
                     refill_mask = np.zeros((B,), bool)
                     refill_mask[list(reqs)] = True
-                    state = eng.refill(self.params, state, refill_mask=refill_mask,
-                                       rng=seed_generators(rows["seeds"], dev), **rows["kw"])
+                    if refill_mask[sl].any():
+                        rows = self._rows(reqs, fill)
+                        state = eng.refill(self.params, state, refill_mask=refill_mask[sl],
+                                           rng=seed_generators(rows["seeds"], dev),
+                                           **rows["kw"])
+                    else:  # another rank's refill: one forward of the batch's NFE
+                        state.nfe += 1
                     with self._lock:
                         self._refills += 1
                 set_in_flight()
@@ -486,6 +615,8 @@ class StreamingBatcher:
                 with self._lock:
                     self._chunks += 1
             except Exception as e:  # the serving loop must outlive one failed batch
+                if axis.size > 1:
+                    raise  # the data ranks cannot go on apart: _drive fails everything
                 # only the occupants reached the failed batch: fail them;
                 # queued requests stay queued for a fresh batch
                 _log.exception("StreamingBatcher: a batch failed")
@@ -495,3 +626,25 @@ class StreamingBatcher:
                         occupants[b] = None
                 set_in_flight()
                 state = None
+
+    def _harvest(self, state, occupants: List[Optional["PendingResult"]]) -> None:
+        """Chunk boundary: resolve the finished occupied slots (over a data
+        axis from the gathered flags and rows; the state's NFE becomes the
+        longest rank's)."""
+        finished, lengths, state.nfe = self.rows.boundary(state)
+        hits = [b for b, h in enumerate(occupants) if h is not None and finished[b]]
+        if not hits:
+            return
+        rows = self.rows.token_rows(state, hits)
+        for b in hits:
+            h = occupants[b]
+            n = int(lengths[b])
+            done = CompletedGeneration(prompt_index=h.index, tokens=rows[b][:n],
+                                       gen_count=n - state.prompt_rows)
+            occupants[b] = None
+            with self._lock:
+                self._completed += 1
+                self._tokens_out += done.gen_count
+                self._metrics.update(latency_s=time.perf_counter() - h.submitted_at,
+                                     gen_tokens=done.gen_count)
+            h._resolve(done)

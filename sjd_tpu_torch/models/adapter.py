@@ -23,8 +23,9 @@ def decoder_model_fns(cfg: transformer.DecoderConfig, *,
                                   inputs_embeds=inputs_embeds)
         return out.logits, out.kv
 
-    def init_cache(batch: int, buf_len: int):
-        return transformer.init_kv_cache(cfg, batch, buf_len, device=dev)
+    def init_cache(batch: int, buf_len: int, model_size: int = 1):
+        return transformer.init_kv_cache(cfg, batch, buf_len, device=dev,
+                                         model_size=model_size)
 
     return ModelFns(forward=forward, init_cache=init_cache,
                     vocab_size=cfg.vocab_size, device=dev)

@@ -54,7 +54,8 @@ import torch.utils.checkpoint
 
 from .. import resolve_device
 from ..ops.decode_attention import _KERNEL_HEAD_DIMS as _ATTENTION_HEAD_DIMS
-from ..ops.decode_attention import NEG_INF, decode_attention, decode_masks
+from ..ops.decode_attention import (
+    NEG_INF, decode_attention, decode_attention_tp, decode_masks)
 from ..ops.fused_epilogue import _KERNEL_HEAD_DIMS as _EPILOGUE_HEAD_DIMS
 from ..ops.fused_epilogue import fused_epilogue_into_cache, quantize_rows, write_kv_layer
 from ..ops.quant_linear import (
@@ -120,17 +121,30 @@ class DecoderConfig:
         return self.num_kv_heads * self.head_dim
 
 
-def check_kernel_head_dim(cfg: DecoderConfig, device) -> None:
+def check_kernel_head_dim(cfg: DecoderConfig, device, model_size: int = 1) -> None:
     """Refuse, when a model is built, a head width that the kernels do not
     take on a device where ``forward`` would launch them (CUDA with
     ``attn_impl="auto"``): the first decode window would raise otherwise.
-    The plain path is an explicit choice, never a silent one."""
+    The plain path is an explicit choice, never a silent one. With
+    ``model_size`` > 1 (tensor parallelism) each rank holds
+    ``num_heads / model_size`` query heads over ``num_kv_heads /
+    model_size`` KV heads: both must divide, which keeps the GQA group."""
+    local_heads(cfg, model_size)
     if (torch.device(device).type == "cuda" and cfg.attn_impl == "auto"
             and cfg.head_dim not in KERNEL_HEAD_DIMS):
         raise ValueError(
             f"head_dim {cfg.head_dim}: the CUDA kernels take head widths "
             f"{KERNEL_HEAD_DIMS}; pass a config with attn_impl=\"plain\" to run this "
             f"model on the plain attention path")
+
+
+def local_heads(cfg: DecoderConfig, model_size: int = 1) -> tuple:
+    """(query heads, KV heads) of one rank of a model axis of
+    ``model_size``: an even split of both, or ValueError."""
+    if cfg.num_heads % model_size or cfg.num_kv_heads % model_size:
+        raise ValueError(f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads do "
+                         f"not split evenly over a model axis of {model_size}")
+    return cfg.num_heads // model_size, cfg.num_kv_heads // model_size
 
 
 class KVCache(NamedTuple):
@@ -149,9 +163,15 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, buf_len: int,
-                  device=None) -> KVCache:
+                  device=None, *, model_size: int = 1) -> KVCache:
+    """The zeroed stacked cache of ``batch`` slots; under tensor
+    parallelism (``model_size`` > 1) one rank's cache of its
+    ``num_kv_heads / model_size`` heads (``parallel.kv_cache_specs``: the
+    heads split on 'model', the slots on 'data', whose rank passes its own
+    slot count)."""
     dev = resolve_device(device)
-    shape = (batch, cfg.num_layers, buf_len, cfg.num_kv_heads, cfg.head_dim)
+    hkv = local_heads(cfg, model_size)[1]
+    shape = (batch, cfg.num_layers, buf_len, hkv, cfg.head_dim)
     if cfg.kv_quant:
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -309,26 +329,35 @@ def embed_lookup(params: Params, ids: Tensor, dtype: torch.dtype) -> Tensor:
     return e[ids].to(dtype)
 
 
-def _quantize_act(x: Tensor):
+def _quantize_act(x: Tensor, amax: Optional[Callable] = None):
     """Dynamic symmetric per-token int8 activations: (xq int8 [..., K], xs
     f32 [..., 1]). The scale is amax times fl32(1/127), as XLA folds the
-    reference's ``amax / 127`` (``ops.fused_epilogue.quantize_rows``)."""
+    reference's ``amax / 127`` (``ops.fused_epilogue.quantize_rows``).
+    ``amax`` maps the local per-token amax to the whole row's: a
+    row-parallel product holds K / m of the columns, and its ranks take the
+    maximum over the model axis (``ModelAxis.amax``) so that they quantize
+    as one device does."""
     xf = x.float()
     inv127 = torch.full((), _INV127, dtype=torch.float32, device=x.device)
-    xs = torch.clamp_min(xf.abs().amax(-1, keepdim=True) * inv127, 1e-8)
+    a = xf.abs().amax(-1, keepdim=True)
+    if amax is not None:
+        a = amax(a)
+    xs = torch.clamp_min(a * inv127, 1e-8)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq, xs
 
 
-def linear(x: Tensor, w, act_quant: str = "bf16", plain: bool = False) -> Tensor:
+def linear(x: Tensor, w, act_quant: str = "bf16", plain: bool = False,
+           amax: Optional[Callable] = None) -> Tensor:
     """x [..., in] @ w [out, in] -> [..., out] (torch's weight layout);
     ``w`` a tensor or a quantized leaf (:func:`linear_multi`)."""
     if isinstance(w, dict):
-        return linear_multi(x, (w,), act_quant, plain)[0]
+        return linear_multi(x, (w,), act_quant, plain, amax)[0]
     return F.linear(x, w)
 
 
-def linear_multi(x: Tensor, ws, act_quant: str = "bf16", plain: bool = False) -> list:
+def linear_multi(x: Tensor, ws, act_quant: str = "bf16", plain: bool = False,
+                 amax: Optional[Callable] = None) -> list:
     """Several projections of the same input (qkv, gate/up), with the JAX
     package's dispatch (transformer.py:457-495):
 
@@ -340,7 +369,9 @@ def linear_multi(x: Tensor, ws, act_quant: str = "bf16", plain: bool = False) ->
 
     Each quantized product is one call of ``ops.quant_linear``'s wrappers
     (the kernel on CUDA tensors, the plain version on the CPU); ``plain``
-    takes the plain versions on the card too (``attn_impl="plain"``)."""
+    takes the plain versions on the card too (``attn_impl="plain"``).
+    ``amax``: the per-token amax over a row-parallel product's whole row
+    (:func:`_quantize_act`)."""
     if not isinstance(ws[0], dict):
         return [F.linear(x, w) for w in ws]
     leaves = [(w["q4p"], 4, w["s"]) if "q4p" in w else (w["q"], 8, w["s"]) for w in ws]
@@ -348,7 +379,7 @@ def linear_multi(x: Tensor, ws, act_quant: str = "bf16", plain: bool = False) ->
         a16 = quant_linear_a16_plain if plain else quant_linear_a16
         return [a16(x, q, s, bits=bits) for q, bits, s in leaves]
     a8 = quant_linear_a8_plain if plain else quant_linear_a8
-    xq, xs = _quantize_act(x)
+    xq, xs = _quantize_act(x, amax)
     return [a8(xq, xs, q, s, bits=bits, out_dtype=x.dtype) for q, bits, s in leaves]
 
 
@@ -662,11 +693,35 @@ def forward(
     """One forward over a window of T tokens with the static KV cache
     (prefill: T = prompt length, cache_end = 0; SJD: T = window).
     ``inputs_embeds`` enters the layers in place of the embedded ``ids``
-    (LlamaGen's conditioning prefix; ``ids`` then only gives the shape)."""
+    (LlamaGen's conditioning prefix; ``ids`` then only gives the shape).
+
+    ``params`` may be one rank's shard of a tensor-parallel tree: a
+    ``parallel.sharding.LocalParams`` (``shard_params``), or a DTensor tree,
+    made local here on every call (the engine makes it local once and keeps
+    it). Each rank then computes its ``num_heads / m`` query heads and
+    ``num_kv_heads / m`` KV heads (its own cache, ``init_kv_cache(...,
+    model_size=m)``) and its share of the MLP's width: the embedding is
+    vocabulary-parallel (masked rows summed over 'model'), q/k/v and
+    gate/up are column-parallel, ``wo`` and ``w_down`` row-parallel with one
+    all-reduce each, the attention is ``decode_attention_tp`` on the rank's
+    heads (no collective), and the vocabulary-parallel head's f32 logits are
+    gathered whole on every rank. ``inputs_embeds`` enter replicated."""
+    from ..parallel.sharding import local_tree  # parallel imports this module
+
+    params = local_tree(params, cfg)
+    tp = getattr(params, "axis", None)
+    m = 1 if tp is None else tp.size
     S, T = ids.shape
     L_buf = kv.buf_len
+    H, Hkv = local_heads(cfg, m)
+    D = cfg.head_dim
+    if kv.k.shape[3] != Hkv:
+        raise ValueError(f"the cache holds {kv.k.shape[3]} KV heads; a rank of a model axis "
+                         f"of {m} computes {Hkv} (init_kv_cache(..., model_size={m}))")
     if inputs_embeds is not None:
         h = inputs_embeds.to(cfg.dtype)
+    elif tp is not None:
+        h = tp.embed(params["embed"], ids, cfg.dtype)
     else:
         h = embed_lookup(params, ids, cfg.dtype)
     rope = rope_table[positions.long()]  # [S, T, 2, D]
@@ -681,8 +736,20 @@ def forward(
     live_end = None
     if use_chunked and not (h.is_cuda and torch.cuda.is_current_stream_capturing()):
         live_end = int(cache_end.max())  # one host read per forward
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     aq, plain = cfg.act_quant, cfg.attn_impl == "plain"
+
+    def row_parallel(x, w):
+        """``wo`` / ``w_down`` and, under a model axis, the sum of the ranks'
+        partial products (one all-reduce). A bf16 partial on the card is
+        kept in f32 (cuBLAS's f32 sum, unrounded) and rounded once after the
+        sum, as one card's product rounds once; quantized partials come out
+        of their kernels in the activations' type."""
+        if tp is None:
+            return linear(x, w, aq, plain)
+        if isinstance(w, dict) or not x.is_cuda or x.dtype == torch.float32:
+            return tp.reduce(linear(x, w, aq, plain, tp.amax))
+        part = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return tp.reduce(part).to(x.dtype).reshape(*x.shape[:-1], w.shape[0])
 
     def attn_block(x, p, i):
         qp, kp, vp = linear_multi(x, (p["wq"], p["wk"], p["wv"]), aq, plain)
@@ -696,9 +763,15 @@ def forward(
                 num_heads=H, num_kv_heads=Hkv, head_dim=D, qk_norm=cfg.qk_norm,
                 eps=cfg.qk_norm_eps,
             )
-            out = decode_attention(q, kv.k, kv.v, kv.k_scale, kv.v_scale,
-                                   cache_end, valid, window=T, layer=i)
-            return linear(out.reshape(S, T, cfg.q_dim), p["wo"], aq, plain)
+            if tp is None:
+                out = decode_attention(q, kv.k, kv.v, kv.k_scale, kv.v_scale,
+                                       cache_end, valid, window=T, layer=i)
+            else:
+                out = decode_attention_tp(q, kv.k, kv.v, kv.k_scale, kv.v_scale, cache_end,
+                                          valid, window=T, layer=i, axis=tp,
+                                          num_heads=cfg.num_heads,
+                                          num_kv_heads=cfg.num_kv_heads)
+            return row_parallel(out.reshape(S, T, H * D), p["wo"])
         q = qp.reshape(S, T, H, D)
         k = kp.reshape(S, T, Hkv, D)
         v = vp.reshape(S, T, Hkv, D)
@@ -725,11 +798,11 @@ def forward(
                                     kv.v_scale[:, i], mask)
         else:
             out = _attend(q, kv.k[:, i], kv.v[:, i], mask)
-        return linear(out.reshape(S, T, cfg.q_dim), p["wo"], aq, plain)
+        return row_parallel(out.reshape(S, T, H * D), p["wo"])
 
     def mlp_block(x, p):
         g, u = linear_multi(x, (p["w_gate"], p["w_up"]), aq, plain)
-        return linear(F.silu(g.float()).to(u.dtype) * u, p["w_down"], aq, plain)
+        return row_parallel(F.silu(g.float()).to(u.dtype) * u, p["w_down"])
 
     layers = params["layers"]
     for i in range(cfg.num_layers):
@@ -747,7 +820,8 @@ def forward(
         logits = torch.einsum("std,vd->stv", h.float(), params["embed"].float())
     else:
         logits = linear(h, params["lm_head"], aq, plain)
-    return ForwardResult(logits=logits.float(), kv=kv)
+    logits = logits.float()
+    return ForwardResult(logits=logits if tp is None else tp.gather_vocab(logits), kv=kv)
 
 
 # ---------------------------------------------------------------------------
@@ -775,14 +849,16 @@ def _identity(x: Tensor) -> Tensor:
 
 def train_layer(h: Tensor, p: Params, cfg: DecoderConfig, cos: Tensor, sin: Tensor,
                 mask: Tensor, enter: Callable = _identity,
-                reduce: Callable = _identity) -> Tensor:
+                reduce: Callable = _identity, amax: Optional[Callable] = None) -> Tensor:
     """One decoder layer over whole sequences (sjd_tpu's ``forward_train``
     layer body): h [B, T, d], mask [B, T, T], the plain ``_attend``. The
     head counts come from the weights, so a tensor-parallel shard of the
     heads and of the MLP's hidden width runs the same body: ``enter``
     (identity forward, sum of the model axis backward) takes the block's
     replicated input, ``reduce`` (sum of the model axis forward) its partial
-    output; both are the identity on one process."""
+    output; both are the identity on one process. ``amax`` takes a
+    row-parallel int8-activation product's per-token amax over the model
+    axis (``ModelAxis.amax``; None on one process)."""
     B, T = h.shape[:2]
     D, aq = cfg.head_dim, cfg.act_quant
 
@@ -793,11 +869,13 @@ def train_layer(h: Tensor, p: Params, cfg: DecoderConfig, cos: Tensor, sin: Tens
             q = head_layer_norm(q, p["q_norm_scale"], p["q_norm_bias"], cfg.qk_norm_eps)
             k = head_layer_norm(k, p["k_norm_scale"], p["k_norm_bias"], cfg.qk_norm_eps)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        return reduce(linear(_attend(q, k, v, mask).reshape(B, T, -1), p["wo"], aq))
+        return reduce(linear(_attend(q, k, v, mask).reshape(B, T, -1), p["wo"], aq,
+                             amax=amax))
 
     def mlp_block(x):
         g, u = linear_multi(enter(x), (p["w_gate"], p["w_up"]), aq)
-        return reduce(linear(F.silu(g.float()).to(u.dtype) * u, p["w_down"], aq))
+        return reduce(linear(F.silu(g.float()).to(u.dtype) * u, p["w_down"], aq,
+                             amax=amax))
 
     if cfg.swin_norm:
         h1 = h + rms_norm(attn_block(h), p["attn_norm"], cfg.norm_eps)
@@ -846,15 +924,16 @@ def _forward_train(params: Params, cfg: DecoderConfig, ids: Tensor, positions: T
     if tp is None:
         h = embed_lookup(params, ids, cfg.dtype)
         enter = reduce = _identity
+        amax = None
     else:
         h = tp.embed(params["embed"], ids, cfg.dtype)
-        enter, reduce = tp.enter, tp.reduce
+        enter, reduce, amax = tp.enter, tp.reduce, tp.amax
     for p in layer_slices(params["layers"]):
         if remat and torch.is_grad_enabled():
             h = torch.utils.checkpoint.checkpoint(train_layer, h, p, cfg, cos, sin, mask,
-                                                  enter, reduce, use_reentrant=False)
+                                                  enter, reduce, amax, use_reentrant=False)
         else:
-            h = train_layer(h, p, cfg, cos, sin, mask, enter, reduce)
+            h = train_layer(h, p, cfg, cos, sin, mask, enter, reduce, amax)
         if per_layer is not None:
             per_layer.append(h.float())
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)

@@ -12,6 +12,11 @@ The attention runs after the window's K/V rows were written at
 ``cache_end`` (``models/transformer.py``), so rows
 ``[cache_end, cache_end + W)`` are live. What bounds the kernel on the H100,
 and what its design does about it, is written at the top of the CUDA source.
+
+:func:`decode_attention_tp` is the tensor-parallel call: attention is
+head-parallel, so each rank of the model axis runs the same kernel on its
+own head shard, with no collective (the JAX package's ``shard_map`` around
+the ``pallas_call``).
 """
 
 from __future__ import annotations
@@ -166,3 +171,46 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_tp(
+    q: Tensor,  # [S, W, H / m, D]: this rank's query heads
+    k_cache: Tensor,  # [S, L, Hkv / m, D] or the stacked [S, NL, L, Hkv / m, D]
+    v_cache: Tensor,
+    k_scale: Optional[Tensor],
+    v_scale: Optional[Tensor],
+    cache_end: Tensor,  # [S] int32, the same on every rank
+    valid: Tensor,  # [S, L] bool, the same on every rank
+    *,
+    window: int,
+    layer: Optional[int] = None,
+    axis,  # the rank's model-axis ProcessGroup, or a parallel.sharding.ModelAxis
+    num_heads: Optional[int] = None,  # the model's query heads, when known
+    num_kv_heads: Optional[int] = None,  # its KV heads, when known
+) -> Tensor:
+    """:func:`decode_attention` on one rank's head shard of a model axis
+    of m ranks (``sjd_tpu/ops/decode_attention.py``'s ``decode_attention_tp``,
+    whose ``mesh``/``axis`` become the rank's group): the rank passes its
+    own q heads and its own cache of ``Hkv / m`` heads, in the 4-D or the
+    stacked 5-D layout, with or without int8 scales, and the hand-written
+    kernel runs on them with no collective; the result is the rank's heads
+    of the output. Refused: a GQA group that does not divide (H / m over
+    Hkv / m), and, given the model's head counts, a split that is not even
+    or not ``num_heads / m`` over ``num_kv_heads / m``."""
+    size = axis.size if hasattr(axis, "size") else _group_size(axis)
+    H, Hkv = q.shape[2], k_cache.shape[-2]
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"decode_attention_tp: {H} local query heads over {Hkv} local KV "
+                         f"heads break the GQA group")
+    for total, local, what in ((num_heads, H, "query"), (num_kv_heads, Hkv, "KV")):
+        if total is not None and (total % size or total // size != local):
+            raise ValueError(f"decode_attention_tp: {total} {what} heads over a model axis "
+                             f"of {size} is not an even split into the {local} given")
+    return decode_attention(q, k_cache, v_cache, k_scale, v_scale, cache_end, valid,
+                            window=window, layer=layer)
+
+
+def _group_size(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)

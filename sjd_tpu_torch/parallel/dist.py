@@ -49,19 +49,22 @@ def resolve_rendezvous(coordinator_address: Optional[str] = None,
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None, *, device=None) -> dict:
+                     process_id: Optional[int] = None, *, device=None,
+                     backend: Optional[str] = None) -> dict:
     """Start ``torch.distributed`` when more than one process takes part,
-    with NCCL when ``device`` (default CUDA) is a GPU and gloo on the CPU;
-    one process starts nothing. Returns the JAX package's four keys: this
-    process' index and the count, and the devices here and in all (one
-    device per process)."""
+    with NCCL when ``device`` (default CUDA) is a GPU and gloo on the CPU,
+    or ``backend`` when given (gloo on CUDA: ranks that share one card,
+    which NCCL refuses); one process starts nothing. Returns the JAX
+    package's four keys: this process' index and the count, and the
+    devices here and in all (one device per process)."""
     dev = resolve_device(device)
     addr, n, pid = resolve_rendezvous(coordinator_address, num_processes, process_id)
     if addr and (n or 1) > 1 and not dist.is_initialized():
-        if dev.type == "cuda":  # one card per process, as torchrun numbers them
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
-                                                     pid % torch.cuda.device_count())))
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+        if dev.type == "cuda":  # one card per process, as torchrun numbers them;
+            # more processes than cards share them (gloo)
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", pid))
+                                  % torch.cuda.device_count())
+        dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
                                 init_method=f"tcp://{addr}", world_size=n, rank=pid)
     count = dist.get_world_size() if dist.is_initialized() else 1
     return {"process_index": dist.get_rank() if dist.is_initialized() else 0,

@@ -18,6 +18,17 @@ with such a tree, where the JAX package leaves it to GSPMD: each leaf is
 gathered over 'data' (FSDP's all-gather, once per forward, its backward a
 reduce-scatter of the gradient) and stays split over 'model', where the
 layer's collectives are explicit (:class:`ModelAxis`).
+
+For decoding, ``shard_params`` (or ``init_params_sharded``, the
+counterpart of ``jax.jit(init_params, out_shardings=...)``) gives each rank
+its own :class:`LocalParams`: plain tensors, the rank's shard of every leaf
+and the :class:`ModelAxis` of its mesh, which ``transformer.forward`` takes
+as it is (``local_tree`` makes one from a DTensor tree). A packed int4 leaf
+split on its contracting dimension (``wo``, ``w_down``) is repacked: its
+bytes hold columns j and j + K/2 together, so a slice of the bytes is not
+a slice of the columns; the rank's columns are unpacked, sliced and packed
+again, split-half within the slice (JAX's GSPMD unpacks the logical array
+instead).
 """
 
 from __future__ import annotations
@@ -27,7 +38,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..models.transformer import DecoderConfig, init_params
+from .. import resolve_device
+from ..models.transformer import DecoderConfig, check_kernel_head_dim, init_params
+from ..ops.quant_linear import unpack_int4
 from .mesh import AXES, mesh_shape, shard
 
 PyTree = Any
@@ -170,6 +183,23 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _MaxFromModel(torch.autograd.Function):
+    """The model axis' maximum forward; the gradient to the ranks whose
+    value is the maximum backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        ctx.save_for_backward(x == out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (held,) = ctx.saved_tensors
+        return g * held.to(g.dtype), None
+
+
 class _GatherFromModel(torch.autograd.Function):
     """The model axis' shards joined along the last dimension forward; this
     rank's shard of the gradient backward."""
@@ -188,30 +218,94 @@ class _GatherFromModel(torch.autograd.Function):
 
 class ModelAxis:
     """Megatron-style collectives of the 'model' axis for
-    ``transformer.train_layer``: a column-parallel block's input enters
-    through :meth:`enter`, a row-parallel block's partial output leaves
-    through :meth:`reduce`; the vocabulary-parallel embedding masks the ids
-    outside this rank's rows and sums, the vocabulary-parallel head's
-    logits are gathered whole."""
+    ``transformer.forward`` and ``transformer.train_layer``: a
+    column-parallel block's input enters through :meth:`enter`, a
+    row-parallel block's partial output leaves through :meth:`reduce`; the
+    vocabulary-parallel embedding masks the ids outside this rank's rows and
+    sums, the vocabulary-parallel head's logits are gathered whole
+    (:meth:`gather_vocab`), and a row-parallel int8-activation product takes
+    its per-token amax over the whole row (:meth:`amax`). With autograd on
+    they are the autograd Functions above; under ``torch.no_grad`` (the
+    decode forward) plain in-place ``all_reduce`` / ``all_gather_into_tensor``
+    on the tensor given, which the caller hands over."""
 
     def __init__(self, group, rank: int, size: int):
         self.group, self.rank, self.size = group, rank, size
 
     def enter(self, x):
-        return _CopyToModel.apply(x, self.group)
+        return _CopyToModel.apply(x, self.group) if torch.is_grad_enabled() else x
 
     def reduce(self, x):
-        return _ReduceFromModel.apply(x, self.group)
+        if torch.is_grad_enabled():
+            return _ReduceFromModel.apply(x, self.group)
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def amax(self, a):
+        """The maximum over the model axis of a per-token amax [..., 1]."""
+        if torch.is_grad_enabled() and a.requires_grad:
+            return _MaxFromModel.apply(a, self.group)
+        a = a.contiguous()
+        dist.all_reduce(a, op=dist.ReduceOp.MAX, group=self.group)
+        return a
 
     def gather_vocab(self, logits):
-        return _GatherFromModel.apply(logits, self.group, self.rank, self.size)
+        if torch.is_grad_enabled():
+            return _GatherFromModel.apply(logits, self.group, self.rank, self.size)
+        x = logits.contiguous()
+        out = self._gather(x)
+        return torch.movedim(out, 0, -2).reshape(*x.shape[:-1], -1)
+
+    def _gather(self, x):
+        """[size, *x.shape]: every rank's ``x`` (gloo takes the output
+        concatenated along dimension 0)."""
+        out = torch.empty((self.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return out.view((self.size,) + tuple(x.shape))
 
     def embed(self, table, ids, dtype):
-        n = table.shape[0]
+        """The vocabulary-parallel lookup from a bf16 table or the int8 one
+        ({"q", "s"}: the rows dequantized as ``transformer.embed_lookup``
+        does): rows outside this rank's shard are zero, so the sum over the
+        axis is exact."""
+        q = table["q"] if isinstance(table, dict) else table
+        n = q.shape[0]
         local = ids.long() - self.rank * n
         inside = (local >= 0) & (local < n)
-        rows = table[local.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+        idx = local.clamp(0, n - 1)
+        if isinstance(table, dict):
+            rows = q[idx].float() * table["s"][idx].float()[..., None]
+        else:
+            rows = q[idx]
+        rows = rows * inside[..., None].to(rows.dtype)
         return self.reduce(rows.to(dtype))
+
+    def check_equal(self, t, what: str) -> None:
+        """Raise unless ``t`` is the same on every rank of the axis (the
+        decode loop's end-of-call check: ranks that drift apart are a
+        fault, never averaged away)."""
+        x = t.to(torch.int64 if not t.is_floating_point() else t.dtype).reshape(1, -1)
+        out = self._gather(x.contiguous())
+        if not bool((out == out[:1]).all()):
+            raise RuntimeError(f"the model axis' ranks disagree on {what}: a host-side "
+                               "choice differed between them")
+
+
+class LocalParams(dict):
+    """One rank's parameter tree of plain tensors (its shard of each leaf)
+    with the :class:`ModelAxis` of its mesh (``axis``, None when the model
+    axis has one rank): what ``transformer.forward`` computes with."""
+
+    def __init__(self, tree, axis: Optional[ModelAxis] = None, mesh=None):
+        super().__init__(tree)
+        self.axis = axis
+        self.mesh = mesh
+
+    @property
+    def model_size(self) -> int:
+        return 1 if self.axis is None else self.axis.size
 
 
 def _named_leaves(tree, prefix: str = ""):
@@ -224,17 +318,162 @@ def _named_leaves(tree, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def local_compute(params: PyTree, cfg: DecoderConfig):
+# ---------------------------------------------------------------------------
+# Each rank's shard as plain tensors (the decode path)
+# ---------------------------------------------------------------------------
+
+
+def _coords(mesh) -> Dict[str, Tuple[int, int]]:
+    """{axis: (this rank's index, the axis' size)}."""
+    shape = mesh_shape(mesh)
+    return {a: (mesh.get_local_rank(a) if n > 1 else 0, n) for a, n in shape.items()}
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """[..., K] int8 codes in [-8, 7] -> [..., K/2] uint8, split-half: byte
+    column j holds column j in its low nibble and column j + K/2 in its
+    high one (``transformer.quantize_int4``'s packing)."""
+    K = codes.shape[-1]
+    lo, hi = codes[..., : K // 2], codes[..., K // 2:]
+    return (lo & 0xF).to(torch.uint8) | (hi.to(torch.uint8) << 4)
+
+
+def packed_column_shard(q4p: torch.Tensor, index: int, size: int) -> torch.Tensor:
+    """Columns [index K/size, (index + 1) K/size) of a packed int4 leaf
+    [.., N, K/2], packed split-half within the slice: what the rank's K1
+    product multiplies its local columns with. One layer at a time, so the
+    unpacked temporaries stay one layer's size."""
+    K = 2 * q4p.shape[-1]
+    if K % (2 * size):
+        raise ValueError(f"{K} packed int4 columns do not split into {size} even halves")
+    n = K // size
+
+    def one(t):
+        return pack_int4(unpack_int4(t).narrow(-1, index * n, n))
+
+    if q4p.dim() == 3:
+        return torch.stack([one(t) for t in q4p])
+    return one(q4p)
+
+
+def _shard_tensor(t: torch.Tensor, spec: Spec, coords, packed: bool = False) -> torch.Tensor:
+    """This rank's shard of one tensor by its spec, as a tensor of its own
+    (a view would keep the global leaf alive); ``packed``: the last
+    dimension is packed int4 (:func:`packed_column_shard`)."""
+    out = t
+    for d, axis in enumerate(spec):
+        index, size = coords[axis] if axis is not None else (0, 1)
+        if size == 1:
+            continue
+        if packed and d == t.dim() - 1:
+            out = packed_column_shard(out, index, size)
+            continue
+        if out.shape[d] % size:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over "
+                             f"{axis}={size}")
+        n = out.shape[d] // size
+        out = out.narrow(d, index * n, n)
+    return out if out is t else out.clone(memory_format=torch.contiguous_format)
+
+
+def _model_axis(mesh, coords) -> Optional[ModelAxis]:
+    index, size = coords["model"]
+    return ModelAxis(mesh.get_group("model"), index, size) if size > 1 else None
+
+
+def shard_params(params: PyTree, mesh, specs: PyTree,
+                 cfg: Optional[DecoderConfig] = None) -> LocalParams:
+    """This rank's :class:`LocalParams` of a global tree that every rank
+    holds: each leaf's shard by ``specs`` (``decoder_param_specs``; quantized
+    leaves take ``expand_specs_for_quantized``'s), the per-row scales of a
+    row-parallel leaf whole, a packed int4 leaf split on its contracting
+    dimension repacked. The tree is consumed leaf by leaf: each global leaf
+    is taken out of its dict once its shard is made, so a rank's peak is its
+    shard plus one global leaf when no one else holds the tree (pass
+    ``copy_tree(params)`` to keep it). With ``cfg`` the head split is
+    checked against the kernels first (``check_kernel_head_dim``)."""
+    coords = _coords(mesh)
+    if cfg is not None:
+        check_kernel_head_dim(cfg, mesh.device_type, model_size=coords["model"][1])
+    specs = expand_specs_for_quantized(params, specs)
+
+    def walk(tree, spec, packed=False):
+        out = {}
+        for k in list(tree):
+            v = tree.pop(k)
+            if isinstance(v, dict):
+                out[k] = walk(v, spec[k], packed="q4p" in v)
+            else:
+                out[k] = _shard_tensor(v, spec[k], coords, packed and k == "q4p")
+            del v
+        return out
+
+    return LocalParams(walk(params, specs), _model_axis(mesh, coords), mesh)
+
+
+def copy_tree(tree: PyTree) -> PyTree:
+    """The nested dicts of a tree anew, over the same tensors."""
+    return _tree_map(lambda t: t, tree)
+
+
+_DENSE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed", "lm_head")
+
+
+def init_params_sharded(rng, cfg: DecoderConfig, mesh, *, device=None) -> LocalParams:
+    """``init_params`` drawn straight into this rank's shards by
+    ``decoder_param_specs(cfg, tp=True)`` (the counterpart of
+    ``jax.jit(init_params, out_shardings=...)``): every rank draws the same
+    global weights from the same seed, one stacked leaf at a time, and
+    keeps its shard of each as soon as it is drawn."""
+    dev = resolve_device(device)
+    specs = decoder_param_specs(cfg, tp=True)
+    coords = _coords(mesh)
+    check_kernel_head_dim(cfg, dev, model_size=coords["model"][1])
+    by_name = {name.rsplit(".", 1)[-1]: spec for name, spec in _named_leaves(specs)}
+    tree = init_params(rng, cfg, device=dev,
+                       leaf_fn=lambda name, w: _shard_tensor(w, by_name[name], coords))
+    # the leaves drawn without leaf_fn: norms and qk-norm affines
+    for name in list(tree["layers"]):
+        if name not in _DENSE:
+            tree["layers"][name] = _shard_tensor(tree["layers"][name],
+                                                 specs["layers"][name], coords)
+    return LocalParams(tree, _model_axis(mesh, coords), mesh)
+
+
+# ---------------------------------------------------------------------------
+# Computing with a DTensor tree
+# ---------------------------------------------------------------------------
+
+
+def _tree_cfg(params: PyTree, cfg: Optional[DecoderConfig]):
+    """What ``decoder_param_specs`` reads of a config, from the tree when
+    no config is given."""
+    if cfg is not None:
+        return cfg
+    import types
+
+    return types.SimpleNamespace(qk_norm="q_norm_scale" in params["layers"],
+                                 tie_word_embeddings="lm_head" not in params)
+
+
+def local_compute(params: PyTree, cfg: Optional[DecoderConfig] = None):
     """(tree of local tensors, :class:`ModelAxis` or None) for a forward.
     A tree without DTensors comes back as it is. Each DTensor leaf is
     gathered over 'data' and keeps its 'model' shard; its gradient flows
     back as a sum over 'data' (the ranks hold different rows of the batch),
     reduce-scattered into the leaf's own layout. The 'model' axis computes
     tensor-parallel when the leaves are split on it as
-    ``decoder_param_specs(tp=True)`` says; a tree replicated over 'model'
-    runs whole on each of its ranks."""
+    ``decoder_param_specs(tp=True)`` says (quantized leaves as
+    ``expand_specs_for_quantized`` says); a tree replicated over 'model'
+    runs whole on each of its ranks. A packed int4 leaf split on 'model'
+    along its contracting dimension is gathered whole and its rank's
+    columns repacked (:func:`packed_column_shard`). A :class:`LocalParams`
+    comes back with its axis. ``cfg`` (optional: the forward checks the
+    heads itself) checks the head split up front."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+    if isinstance(params, LocalParams):
+        return params, params.axis
     leaves = list(_named_leaves(params))
     sharded = [t for _, t in leaves if isinstance(t, DTensor)]
     if not sharded:
@@ -246,15 +485,14 @@ def local_compute(params: PyTree, cfg: DecoderConfig):
         raise ValueError(f"mesh axes {mesh.mesh_dim_names}, not {AXES}")
     m = mesh_shape(mesh)["model"]
     tp_on = any(isinstance(t.placements[1], Shard) for t in sharded)
+    packed_cols = set()
     if tp_on:
-        if cfg.num_heads % m or cfg.num_kv_heads % m:
+        if cfg is not None and (cfg.num_heads % m or cfg.num_kv_heads % m):
             raise ValueError(f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads "
                              f"do not split over model={m}")
-        expected = dict(_named_leaves(decoder_param_specs(cfg, tp=True)))
+        expected = dict(_named_leaves(expand_specs_for_quantized(
+            params, decoder_param_specs(_tree_cfg(params, cfg), tp=True))))
         for name, t in leaves:
-            if name.rsplit(".", 1)[-1] in ("q", "q4p", "s"):
-                raise NotImplementedError("quantized leaves run tensor-parallel only in "
-                                          "the JAX package; here they run on one process")
             if shard(mesh, expected[name])[1] != t.placements[1]:
                 raise ValueError(f"{name} is laid out {t.placements}, not as "
                                  f"decoder_param_specs(tp=True) says")
@@ -262,12 +500,39 @@ def local_compute(params: PyTree, cfg: DecoderConfig):
             if isinstance(pl, Shard) and t.shape[pl.dim] % m:
                 raise ValueError(f"{name}: dim {pl.dim} of {tuple(t.shape)} "
                                  f"does not split over model={m}")
+            if name.endswith(".q4p") and isinstance(pl, Shard) and pl.dim == t.dim() - 1:
+                packed_cols.add(id(t))
+    rank = mesh.get_local_rank("model") if m > 1 else 0
 
     def local(t):
+        if id(t) in packed_cols:
+            return packed_column_shard(t.full_tensor(), rank, m)
         keep = t.placements[1]
         return t.redistribute(mesh, (Replicate(), keep)).to_local(
             grad_placements=(Partial(), keep))
 
     out = _tree_map(local, params)
-    tp = ModelAxis(mesh.get_group("model"), mesh.get_local_rank("model"), m) if tp_on else None
+    tp = ModelAxis(mesh.get_group("model"), rank, m) if tp_on else None
     return out, tp
+
+
+def local_tree(params: PyTree, cfg: Optional[DecoderConfig] = None) -> PyTree:
+    """What ``transformer.forward`` computes with: a :class:`LocalParams`
+    as it is, a DTensor tree made local (:func:`local_compute`, without
+    autograd) with its mesh's :class:`ModelAxis`, a plain tree as it is.
+    The engine calls it once per params object and keeps the result."""
+    if isinstance(params, LocalParams) or not _has_dtensors(params):
+        return params
+    with torch.no_grad():
+        local, tp = local_compute(params, cfg)
+    first = next(t for _, t in _named_leaves(params))
+    return LocalParams(local, tp, first.device_mesh)
+
+
+def _has_dtensors(params: PyTree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(params, dict) or "embed" not in params:
+        return False
+    e = params["embed"]
+    return isinstance(e["q"] if isinstance(e, dict) else e, DTensor)

@@ -1,7 +1,8 @@
 """sjd_tpu_torch imports neither JAX (nor optax or orbax) nor any module of
 sjd_tpu, and none of safetensors, transformers, tokenizers, sentencepiece, PIL, tiktoken, pandas
 and torchvision when its modules are imported (the Emu3, Anole, LlamaGen,
-T5, evaluation and training modules, the command lines included): the machine with the
+T5, evaluation, training and tensor-parallel decoding modules, the command lines
+included): the machine with the
 GPU has none of them, so such an import would break the port there."""
 
 import json
@@ -41,6 +42,7 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
                  "eval.inception", "eval.clip", "eval.harness", "eval.latency",
                  "eval.eval_model", "eval.recon_eval", "utils.image_io", "parallel.mesh",
                  "parallel.sharding", "parallel.dist", "parallel.training", "parallel.finetune",
-                 "data.dataset", "data.sampler", "data.pre_tokenize", "utils.checkpoints"):
+                 "data.dataset", "data.sampler", "data.pre_tokenize", "utils.checkpoints",
+                 "parallel.multihost_dryrun", "parallel.tp_decode"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

@@ -78,6 +78,10 @@ EPILOGUE_CASES = {
     # past L - T, and negative (counts from the end): both clamp to L - T
     "clamped": ((2, 16, 32, 32, 128, 2, 256, 1), (250, -3)),
     "prefill15": ((2, 15, 32, 32, 128, 2, 256, 0), (0, 0)),  # the 15-token prompt
+    # one rank's heads at TP=2: the 7B's 16 of 32 (MHA), the 34B's 32 query
+    # heads over 4 KV heads (GQA group 8)
+    "tp2_7b": ((2, 16, 16, 16, 128, 3, 2560, 1), (1200, 37)),
+    "tp2_34b": ((2, 16, 32, 4, 128, 2, 2560, 1), (2400, 150)),
     # Chameleon-34B: 64 query heads over 8 KV heads, 48 layers, the last one
     "chameleon34b": ((2, 16, 64, 8, 128, 48, 2560, 47), (2400, 150)),
     # Emu3-Gen 8B: 32 query heads over 8 KV heads, 32 layers, a 720px
@@ -191,6 +195,10 @@ ATTENTION_CASES = {
     "llamagen_3b_fill400": ((2, 16, 32, 32, 100, 2, 1024), (400, 400), (0, 0)),
     "llamagen_3b_fill600": ((2, 16, 32, 32, 100, 2, 1024), (600, 577), (0, 0)),
     "llamagen_3b_w1": ((2, 1, 32, 32, 100, 1, 1024), (300, 17), (0, 5)),  # the AR step
+    # one rank's heads at TP=2 (decode_attention_tp's shapes): the 7B's 16
+    # of 32, the 34B's 32 query heads over 4 KV heads
+    "tp2_7b": ((2, 16, 16, 16, 128, 3, 1536), (700, 37), (0, 20)),
+    "tp2_34b": ((2, 16, 32, 4, 128, 2, 2560), (2400, 150), (0, 14)),
 }
 
 
@@ -230,6 +238,36 @@ def test_attention_kernel_matches_plain(cuda, quantize, case):
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
         _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["int8", "bf16"])
+def test_decode_attention_tp_launches_the_kernel_on_the_shard(cuda, quantize):
+    """decode_attention_tp on one rank's heads of the 34B at TP=2 is one
+    launch of the kernel on that shard, equal to the plain version."""
+    from types import SimpleNamespace
+
+    from sjd_tpu_torch.ops.decode_attention import decode_attention_tp
+
+    S, W, H, Hkv, D, NL, L = 2, 16, 32, 4, 128, 2, 2560
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((S, W, H, D), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((S, NL, L, Hkv, D), generator=g, device=cuda)
+    v = torch.randn((S, NL, L, Hkv, D), generator=g, device=cuda)
+    ks = vs = None
+    if quantize:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    cache_end = torch.tensor([2400, 150], dtype=torch.int32, device=cuda)
+    valid = torch.ones((S, L), dtype=torch.bool, device=cuda)
+    before = decode_attention.launches
+    got = decode_attention_tp(q, k, v, ks, vs, cache_end, valid, window=W, layer=1,
+                              axis=SimpleNamespace(size=2), num_heads=64, num_kv_heads=8)
+    assert decode_attention.launches == before + 1
+    want = decode_attention_plain(q, k, v, ks, vs, cache_end, valid, layer=1)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -993,3 +1031,59 @@ def test_train_step_card_equals_cpu(cuda, monkeypatch):
             assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), (k, got[k], want[k])
     for n, t in want_p.items():
         torch.testing.assert_close(got_p[n], t, rtol=1e-4, atol=1e-2 * tcfg.learning_rate)
+
+
+# w_down of one rank at TP=2 (N, K of the whole leaf): the 7B's and the 34B's
+TP_DOWN_SHAPES = {"7b": (4096, 11008), "34b": (8192, 22016)}
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("model", list(TP_DOWN_SHAPES))
+def test_quant_linear_a16_on_the_repacked_w_down_shard(cuda, model, rank):
+    """K1 on a rank's repacked int4 w_down shard (its K half unpacked,
+    sliced and packed split-half again: 2752- and 5504-byte rows) against
+    the plain version; the two ranks' plain partial products sum to the
+    whole leaf's product."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+    from sjd_tpu_torch.parallel.sharding import packed_column_shard
+
+    N, K = TP_DOWN_SHAPES[model]
+    x, q, s = _quant_inputs(cuda, 32, N, K, 4, seed=3)
+    shard = packed_column_shard(q, rank, 2)
+    assert shard.shape == (N, K // 4)
+    xl = x[:, rank * K // 2:(rank + 1) * K // 2].contiguous()
+    before = ql.quant_linear_a16.launches
+    got = ql.quant_linear_a16(xl, shard, s, bits=4)
+    assert ql.quant_linear_a16.launches == before + 1
+    want = ql.quant_linear_a16_plain(xl, shard, s, bits=4)
+    torch.cuda.synchronize()
+    _bf16_close(got, want)
+    other = packed_column_shard(q, 1 - rank, 2)
+    xo = x[:, (1 - rank) * K // 2:(2 - rank) * K // 2]
+    parts = (ql.quant_linear_a16_plain(xl.float(), shard, s.float(), bits=4)
+             + ql.quant_linear_a16_plain(xo.float(), other, s.float(), bits=4))
+    whole = ql.quant_linear_a16_plain(x.float(), q, s.float(), bits=4)
+    torch.testing.assert_close(parts, whole, rtol=1e-4, atol=1e-3)
+
+
+def test_engine_refuses_a_cuda_graph_under_a_model_axis(cuda):
+    """One rank's shard of a model axis of 2 steps eagerly (a gloo
+    collective cannot be captured): an engine built with cuda_graph=True
+    raises at its first call and says what to pass, before any collective."""
+    from sjd_tpu_torch.core.engine import EngineConfig, SJDEngine
+    from sjd_tpu_torch.core.grammar import GrammarSpec
+    from sjd_tpu_torch.core.processors import SamplingParams
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.adapter import decoder_model_fns
+    from sjd_tpu_torch.parallel.sharding import LocalParams, ModelAxis
+
+    cfg = pt.DecoderConfig(vocab_size=64, hidden_size=256, intermediate_size=256, num_layers=1,
+                           num_heads=2, num_kv_heads=2, head_dim=128,
+                           max_position_embeddings=64)
+    params = LocalParams(pt.init_params(0, cfg, device=cuda), ModelAxis(None, 0, 2))
+    eng = SJDEngine(decoder_model_fns(cfg, max_positions=64, device=cuda),
+                    EngineConfig(window=4, scheme="jacobi", max_len=8, cfg_mode="none"),
+                    GrammarSpec(kind="none", image_vocab_start=0, image_vocab_end=63),
+                    SamplingParams(do_cfg=False, greedy=True, image_top_k=64, text_top_k=64))
+    with pytest.raises(ValueError, match="cuda_graph=False"):
+        eng.generate(params, 0, torch.tensor([[1, 2, 3]], device=cuda))

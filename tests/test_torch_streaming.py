@@ -187,8 +187,9 @@ def test_greedy_streaming_batcher_equals_jax(jax_params, params):
 
 
 def test_streaming_batcher_refuses_what_it_does_not_take(params):
-    """Data-parallel slots; a prompt over the bucket; embeddings in token
-    mode, and ids or embeddings of the wrong width in embedding mode."""
+    """A row_sharding that is neither a mesh nor a data group; a prompt
+    over the bucket; embeddings in token mode, and ids or embeddings of the
+    wrong width in embedding mode."""
     eb = StreamingBatcher(engine(), params, prompt_width=5, embed_dim=8)
     with pytest.raises(ValueError, match="prompt_embeds"):
         eb.submit([1, 2])
@@ -196,7 +197,7 @@ def test_streaming_batcher_refuses_what_it_does_not_take(params):
         eb.submit(prompt_embeds=np.zeros((1, 7), np.float32),
                   neg_prompt_embeds=np.zeros((1, 7), np.float32))
     eb.close()
-    with pytest.raises(NotImplementedError, match="row_sharding"):
+    with pytest.raises(ValueError, match="row_sharding"):
         StreamingBatcher(engine(), params, prompt_width=5, row_sharding=object())
     sb = StreamingBatcher(engine(), params, batch=2, prompt_width=5)
     with pytest.raises(ValueError, match="bucket"):
