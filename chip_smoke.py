@@ -202,6 +202,26 @@ earlier model freed (under 1 GB allocated before train_7b):
   38. train_cli - python -m sjd_tpu_torch.parallel.finetune (tiny model,
                20 steps) as a process, then resumed to 30.
 
+and VQGAN tokenizer training (sjd_tpu_torch/models/vq: train, lpips, the
+two discriminators, vq_train; no kernel lies on it, and each training phase
+holds the kernels' launch counts at 0), under build/chip_smoke_vq/ (removed
+at the end):
+
+  38b. vq_train - LlamaGen VQ-16 at full width (f32) at 256px, batch 8,
+               with random VGG16 LPIPS and PatchGAN (n_layers 3, ndf 64), the
+               adaptive weight and hinge, as the command line builds them:
+               1 warm-up and 5 timed G/D pairs with cuDNN's TF32 on (the
+               default): G and D seconds, images per second, peak memory,
+               FLOPs per pair, losses and usage; the EMA and D move;
+  38c. vq_train_stylegan - the same with the StyleGAN discriminator at
+               image_size 256, 2 timed pairs;
+  38d. vq_train_card_cpu - a 64px, batch-2 pair's losses and gradients on
+               the card (TF32 off, held; TF32 on, reported) against the CPU;
+  38e. vq_train_cli - python -m sjd_tpu_torch.models.vq.vq_train twice as
+               processes (--synthetic, and --images over PNGs written by
+               write_png), 4 steps at 64px: the JAX script's JSON keys, the
+               checkpoint restored.
+
 and tensor- and data-parallel decoding (sjd_tpu_torch/parallel: shard_params,
 decode_attention_tp, the TP forward, row_sharding), two ranks spawned on the
 one card over gloo (NCCL refuses two ranks on one device), every earlier
@@ -3582,6 +3602,277 @@ def phase_train_cli(dev, root: str):
           f"final {runs[1]['final']}")
 
 
+# -- VQGAN tokenizer training -----------------------------------------------------
+
+VQ_DIR = os.path.join(HERE, "build", "chip_smoke_vq")
+VQ_SIZE, VQ_BATCH = 256, 8  # vq_train's cell: LlamaGen VQ-16 at 256px, batch 8
+VQ_CLI_KEYS = ["step", "loss", "recon", "perceptual", "gan_g", "d_loss", "usage", "img_per_s"]
+TF32_TFLOPS = 495e12  # dense TF32 tensor cores
+
+
+def _vq_configs(disc_type: str, size: int):
+    """The command line's configuration on LLAMAGEN_VQ16 in f32 (recon l2,
+    perceptual 1.0, disc_start 0, disc_weight 0.5, the adaptive weight,
+    hinge) with PatchGAN at n_layers 3, ndf 64, or StyleGAN at image_size
+    ``size``: (cfg, tcfg, dcfg)."""
+    import torch
+
+    from sjd_tpu_torch.models.vq.discriminator import PatchGANConfig
+    from sjd_tpu_torch.models.vq.discriminator_stylegan import StyleGANDiscConfig
+    from sjd_tpu_torch.models.vq.taming import LLAMAGEN_VQ16
+    from sjd_tpu_torch.models.vq.train import VQTrainConfig
+
+    cfg = dataclasses.replace(LLAMAGEN_VQ16, dtype=torch.float32)
+    tcfg = VQTrainConfig(recon_loss="l2", perceptual_weight=1.0, disc_start=0,
+                         disc_weight=0.5, disc_adaptive_weight=True)
+    dcfg = (StyleGANDiscConfig(image_size=size) if disc_type == "stylegan"
+            else PatchGANConfig(n_layers=3, ndf=64))
+    return cfg, tcfg, dcfg
+
+
+def _vq_trainer(dev, disc_type: str, size: int):
+    """_vq_configs' trainer with random VGG16 LPIPS on ``dev``: (cfg, steps,
+    params)."""
+    from sjd_tpu_torch.models.vq.lpips import init_lpips_params
+    from sjd_tpu_torch.models.vq.taming import init_vq_params
+    from sjd_tpu_torch.models.vq.train import make_vqgan_train_steps
+
+    cfg, tcfg, dcfg = _vq_configs(disc_type, size)
+    steps = make_vqgan_train_steps(cfg, tcfg, lpips_params=init_lpips_params(1, device=dev),
+                                   disc_cfg=dcfg, disc_type=disc_type)
+    return cfg, steps, init_vq_params(0, cfg, device=dev)
+
+
+def phase_vq_train_pairs(dev, label: str, disc_type: str, timed: int,
+                         size: int = VQ_SIZE, batch: int = VQ_BATCH) -> dict:
+    """One warm-up G/D pair, then ``timed`` pairs of the VQ-16 trainer on
+    the command line's synthetic batches, with cuDNN's TF32 on (PyTorch's
+    default, as the command line runs): G and D seconds apart (CUDA events),
+    the pair's host seconds, images per second, peak memory, the losses
+    (finite), usage, the model FLOPs of a pair (torch's FlopCounterMode, one
+    more pair) against TF32's peak; the EMA and D must move, and no kernel
+    of sjd_tpu_torch/csrc may launch (none lies on this path)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sjd_tpu_torch.models.vq.train import tree_leaves
+    from sjd_tpu_torch.models.vq.vq_train import synthetic_batches
+    from sjd_tpu_torch.ops import launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg, (init_fn, g_step, d_step), params = _vq_trainer(dev, disc_type, size)
+    g_opt, d_params, d_opt, ema = init_fn(params, 2)
+    ema0 = [t.detach().clone() for t in tree_leaves(ema)]
+    d0 = [t.detach().clone() for t in tree_leaves(d_params)]
+    batches = synthetic_batches(size, batch, np.random.RandomState(0))
+    xs = [torch.from_numpy(next(batches)).to(dev) for _ in range(timed + 2)]
+    _zero_launch_counts()
+    pairs = []
+    for i, x in enumerate(xs[:timed + 1]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ev[0].record()
+        params, g_opt, ema, g_aux = g_step(params, g_opt, ema, d_params, x, i)
+        ev[1].record()
+        d_params, d_opt, d_aux = d_step(d_params, d_opt, params, x, i)
+        ev[2].record()
+        torch.cuda.synchronize()
+        pairs.append(dict(pair_s=time.time() - t0, g_s=ev[0].elapsed_time(ev[1]) / 1e3,
+                          d_s=ev[1].elapsed_time(ev[2]) / 1e3,
+                          aux={k: float(v) for k, v in {**g_aux, **d_aux}.items()}))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as counter:
+        g_step(params, g_opt, ema, d_params, xs[-1], timed + 1)
+        d_step(d_params, d_opt, params, xs[-1], timed + 1)
+    flops = counter.get_total_flops()
+    timed_pairs = pairs[1:]
+    pair_s = statistics.median(p["pair_s"] for p in timed_pairs)
+    out = dict(disc_type=disc_type, size=size, batch=batch, timed_pairs=timed,
+               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               g_params=sum(t.numel() for t in tree_leaves(params)),
+               d_params=sum(t.numel() for t in tree_leaves(d_params)),
+               warmup_pair_s=pairs[0]["pair_s"], g_s=statistics.median(
+                   p["g_s"] for p in timed_pairs),
+               d_s=statistics.median(p["d_s"] for p in timed_pairs), pair_s=pair_s,
+               pair_s_all=[p["pair_s"] for p in timed_pairs], images_per_s=batch / pair_s,
+               peak_mem_gb=peak / 1e9, resident_before_gb=base / 1e9,
+               flops_per_pair=flops, tf32_peak_share=flops / pair_s / TF32_TFLOPS,
+               aux=[p["aux"] for p in pairs], kernel_launches=launches,
+               ema_moved=any(not torch.equal(a, b) for a, b in zip(ema0, tree_leaves(ema))),
+               d_moved=any(not torch.equal(a, b) for a, b in zip(d0, tree_leaves(d_params))))
+    emit(label, **out)
+    for p in pairs:
+        check(all(math.isfinite(v) for v in p["aux"].values()), f"{label}: aux {p['aux']}")
+        check(0 < p["aux"]["usage"] <= 1 and p["aux"]["disc_w"] > 0, f"{label}: {p['aux']}")
+    check(out["ema_moved"] and out["d_moved"], f"{label}: EMA or D did not move")
+    check(not any(launches.values()), f"{label}: kernels launched on the VQ path: {launches}")
+    return out
+
+
+def _vq_pair_parts(dev, size: int = 64, batch: int = 2):
+    """One G/D pair's losses and gradients from weights drawn on the CPU:
+    (G aux, G grads, recon, D inputs)."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.models.vq import train as vt
+    from sjd_tpu_torch.models.vq.discriminator import init_patchgan_params
+    from sjd_tpu_torch.models.vq.lpips import init_lpips_params
+    from sjd_tpu_torch.models.vq.taming import init_vq_params
+
+    cfg, tcfg, dcfg = _vq_configs("patchgan", size)
+
+    def move(tree):
+        return vt._tree_map(lambda t: t.to(dev).requires_grad_(True), tree)
+
+    params = move(init_vq_params(0, cfg, device="cpu"))
+    d_params = move(init_patchgan_params(2, dcfg, device="cpu"))
+    lp = vt._tree_map(lambda t: t.to(dev), init_lpips_params(1, device="cpu"))
+    x = torch.from_numpy(np.tanh(np.random.RandomState(0).randn(batch, size, size, 3))
+                         .astype(np.float32)).to(dev)
+    loss, g_aux = vt.generator_loss(params, d_params, x, 0, cfg, tcfg, lpips_params=lp,
+                                    disc_cfg=dcfg)
+    g_grads = torch.autograd.grad(loss, vt.tree_leaves(params))
+    with torch.no_grad():
+        recon, _ = vt._vq_forward(params, cfg, x)
+    return vt._tree_map(torch.detach, g_aux), g_grads, recon, (d_params, x, tcfg, dcfg)
+
+
+def _vq_d_parts(recon, d_args):
+    import torch
+
+    from sjd_tpu_torch.models.vq import train as vt
+
+    d_params, x, tcfg, dcfg = d_args
+    loss, d_aux = vt.discriminator_loss(d_params, x, recon.to(x.device), 0, tcfg, disc_cfg=dcfg)
+    return vt._tree_map(torch.detach, d_aux), torch.autograd.grad(loss, vt.tree_leaves(d_params))
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Paths of train.tree_leaves' leaves, in its order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]] if hasattr(tree, "shape") else []
+
+
+def _vq_errors(want, got, names) -> dict:
+    """Each aux value's relative error (the logits' means: absolute), and
+    each gradient set's largest leaf error over that leaf's largest
+    magnitude (a leaf under 1e-6 of the set's largest, 0 in exact
+    arithmetic, over that floor), with the three worst leaves: (name, error,
+    the leaf's largest magnitude over the set's)."""
+    (w_aux, w_grads), (g_aux, g_grads) = want, got
+    aux = {k: abs(float(g_aux[k]) - float(w)) / (1.0 if k.startswith("logits_") else abs(float(w)))
+           for k, w in w_aux.items()}
+    top = max(float(w.abs().max()) for w in w_grads)
+    errs = sorted(((float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6 * top),
+                    n, float(w.abs().max()) / top) for n, w, g in zip(names, w_grads, g_grads)),
+                  reverse=True)
+    return dict(aux=aux, grad=errs[0][0], worst=[(n, e, m) for e, n, m in errs[:3]])
+
+
+def phase_vq_train_card_cpu(dev) -> dict:
+    """A 64px, batch-2 pair of the VQ-16 trainer's losses and gradients on
+    the card and on the CPU from the same weights and pixels (the D half on
+    the CPU's recon), with cuDNN's TF32 off (f32, as the JAX trainer) and
+    on (PyTorch's default). TF32 off is held: each loss within 1e-3
+    relative (the logits' means 1e-4 absolute), each gradient leaf within
+    1e-2 of its largest magnitude (the leaves whose gradient cancels to
+    1e-3-1e-4 of the largest, biases before a normalization, come to 2.3e-3
+    in f32). TF32 on is reported; its losses must be finite and within 5e-2
+    relative of the CPU's (recon, perceptual, loss)."""
+    import torch
+
+    want_g, want_gg, recon, want_d_args = _vq_pair_parts("cpu")
+    want_d, want_dg = _vq_d_parts(recon, want_d_args)
+    from sjd_tpu_torch.models.vq.discriminator import init_patchgan_params
+    from sjd_tpu_torch.models.vq.taming import init_vq_params
+
+    cfg, _, dcfg = _vq_configs("patchgan", 64)
+    g_names = _leaf_names(init_vq_params(0, cfg, device="cpu"))
+    d_names = _leaf_names(init_patchgan_params(2, dcfg, device="cpu"))
+    out = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        got_g, got_gg, _, got_d_args = _vq_pair_parts(dev)
+        got_d, got_dg = _vq_d_parts(recon, got_d_args)
+        out["tf32" if tf32 else "f32"] = dict(
+            g=_vq_errors((want_g, want_gg), (got_g, got_gg), g_names),
+            d=_vq_errors((want_d, want_dg), (got_d, got_dg), d_names),
+            card_aux={k: float(v) for k, v in {**got_g, **got_d}.items()})
+    out["cpu_aux"] = {k: float(v) for k, v in {**want_g, **want_d}.items()}
+    emit("vq_train_card_cpu", **out)
+    for half in ("g", "d"):
+        f32 = out["f32"][half]
+        check(all(e <= (1e-4 if k.startswith("logits_") else 1e-3) for k, e in f32["aux"].items()),
+              f"vq_train_card_cpu f32 {half} aux {f32['aux']}")
+        check(f32["grad"] <= 1e-2, f"vq_train_card_cpu f32 {half} grad error {f32['worst']}")
+    check(all(math.isfinite(v) for v in out["tf32"]["card_aux"].values()), "tf32 aux")
+    check(all(out["tf32"]["g"]["aux"][k] <= 5e-2 for k in ("loss", "recon", "perceptual")),
+          f"vq_train_card_cpu tf32 aux {out['tf32']['g']['aux']}")
+    return out
+
+
+def phase_vq_train_cli(dev, root: str) -> dict:
+    """python -m sjd_tpu_torch.models.vq.vq_train as two processes started
+    together: --synthetic, and --images over 6 PNGs written by write_png
+    (80px, resized to 64), each --steps 4 --size 64 --batch 2 --save-every 2
+    --log-every 1: exit 0, four JSON lines with the JAX script's keys, all
+    finite, checkpoints at steps 2 and 4, the latest restored on the card
+    with finite, trained parameters."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.models.vq.discriminator import PatchGANConfig, init_patchgan_params
+    from sjd_tpu_torch.models.vq.taming import LLAMAGEN_VQ16, init_vq_params
+    from sjd_tpu_torch.models.vq.train import _tree_map, tree_leaves
+    from sjd_tpu_torch.utils.checkpoints import make_manager, restore
+    from sjd_tpu_torch.utils.image_io import write_png
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    rs = np.random.RandomState(3)
+    for i in range(6):
+        field = np.repeat(np.repeat(rs.rand(20, 20, 3), 4, axis=0), 4, axis=1)
+        write_png(os.path.join(images, f"{i}.png"), (field * 255).astype(np.uint8))
+    common = ["--steps", "4", "--size", "64", "--batch", "2", "--save-every", "2",
+              "--log-every", "1"]
+    outs = {"synthetic": os.path.join(root, "ck_synthetic"), "images": os.path.join(root, "ck_images")}
+    results = _run_modules([
+        ["sjd_tpu_torch.models.vq.vq_train", "--synthetic", *common, "--out", outs["synthetic"]],
+        ["sjd_tpu_torch.models.vq.vq_train", "--images", images, *common, "--out",
+         outs["images"]]], os.path.join(root, "logs"))
+    cfg = dataclasses.replace(LLAMAGEN_VQ16, dtype=torch.float32)
+    drawn = init_vq_params(0, cfg, device=dev)
+    report = {}
+    for (name, out_dir), (lines, sec) in zip(outs.items(), results):
+        steps = make_manager(out_dir).all_steps()
+        template = {"params": _tree_map(torch.zeros_like, drawn),
+                    "ema": _tree_map(torch.zeros_like, drawn),
+                    "disc": init_patchgan_params(2, PatchGANConfig(n_layers=3), device=dev)}
+        back = restore(make_manager(out_dir), template)
+        moved = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(back["params"]),
+                                                                tree_leaves(drawn)))
+        finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(back))
+        report[name] = dict(seconds=sec, lines=lines, checkpoint_steps=steps,
+                            restored_max_change=moved, restored_finite=finite)
+        check([ln.get("step") for ln in lines] == [0, 1, 2, 3], f"vq_train_cli {name}: {lines}")
+        check(all(list(ln) == VQ_CLI_KEYS and all(math.isfinite(v) for v in ln.values())
+                  for ln in lines), f"vq_train_cli {name}: {lines}")
+        check(steps == [2, 4] and finite and moved > 0, f"vq_train_cli {name}: {report[name]}")
+    emit("vq_train_cli", **report)
+    return report
+
+
 # -- tensor- and data-parallel decoding ----------------------------------------
 
 TP_DIR = os.path.join(HERE, "build", "chip_smoke_tp")
@@ -4215,6 +4506,23 @@ def main() -> int:
         phase_train_cli(dev, TRAIN_DIR)
     finally:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    # VQGAN tokenizer training (no kernel lies on it): VQ-16 at 256px with
+    # PatchGAN, then StyleGAN, with cuDNN's TF32 on as the command line runs;
+    # the card against the CPU; the command line, under build/chip_smoke_vq/
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(VQ_DIR, ignore_errors=True)
+    os.makedirs(VQ_DIR)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        phase_vq_train_pairs(dev, "vq_train", "patchgan", timed=5)
+        phase_vq_train_pairs(dev, "vq_train_stylegan", "stylegan", timed=2)
+        phase_vq_train_card_cpu(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        phase_vq_train_cli(dev, VQ_DIR)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(VQ_DIR, ignore_errors=True)
     # tensor and data parallelism: ranks spawned on the one card over gloo,
     # every earlier model freed
     gc.collect()

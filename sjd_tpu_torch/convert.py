@@ -239,3 +239,44 @@ def train_config_from_jax(jcfg):
     from .parallel.training import TrainConfig
 
     return TrainConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+
+
+def vq_train_config_from_jax(jcfg):
+    """The port's ``VQTrainConfig`` with every field of a sjd_tpu one (the
+    two have the same fields and defaults)."""
+    from .models.vq.train import VQTrainConfig
+
+    return VQTrainConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+
+
+def _oihw_tree(np_tree, dev):
+    """Numpy leaves -> tensors, 4-D (HWIO) ones to OIHW and 2-D ([in, out]
+    linear) ones to [out, in]."""
+    def leaf(a):
+        t = tensor_from_numpy(a, dev)
+        if t.dim() == 4:
+            return t.permute(3, 2, 0, 1).contiguous()
+        return t.t().contiguous() if t.dim() == 2 else t
+
+    return _tree(np_tree, leaf)
+
+
+def lpips_params_from_jax(np_tree: dict, device=None) -> dict:
+    """sjd_tpu LPIPS params (``init_lpips_params`` or ``port_lpips``, numpy
+    leaves) -> the port's: conv weights HWIO -> OIHW, ``calibrated`` kept."""
+    dev = resolve_device(device)
+    return {"convs": _oihw_tree(np_tree["convs"], dev),
+            "lins": [tensor_from_numpy(v, dev) for v in np_tree["lins"]],
+            "calibrated": bool(np_tree["calibrated"])}
+
+
+def patchgan_params_from_jax(np_tree: dict, device=None) -> dict:
+    """sjd_tpu PatchGAN params (numpy leaves) -> the port's: conv weights
+    HWIO -> OIHW."""
+    return _oihw_tree(np_tree, resolve_device(device))
+
+
+def stylegan_disc_params_from_jax(np_tree: dict, device=None) -> dict:
+    """sjd_tpu StyleGAN discriminator params (numpy leaves) -> the port's:
+    conv weights HWIO -> OIHW, ``fc1``/``fc2`` [in, out] -> [out, in]."""
+    return _oihw_tree(np_tree, resolve_device(device))

@@ -158,6 +158,13 @@ class ContinuousBatcher:
     state; by default the engine's own. ``row_sharding`` spreads the slots
     over the data axis (module docstring): every data rank calls ``run``
     with the same arguments, and the completions come back on each.
+
+    Batch width: on bf16 (or f16) weights on CUDA a request's tokens can
+    change with the number of slots, because cuBLAS picks its GEMM kernel,
+    and so its summation order, by the row count M (seen at width 5 on an
+    H100). Quantized weights keep the tokens at every width (K1/K2 never
+    split by M; ``chip_smoke.py``'s ``widths_w4a16`` holds it), and so
+    does the CPU.
     """
 
     def __init__(self, engine, params, *, chunk_steps: int = 128,
@@ -316,8 +323,11 @@ class StreamingBatcher:
 
     A request's slot gets a generator seeded from its own ``seed``
     (:func:`seed_generators`) when it is admitted, into a fresh batch or by
-    a refill, so its tokens are a function of (prompt, seed) alone, whatever
-    the arrival order and the co-scheduled load. Idle slots carry a copy of
+    a refill, so its draws are a function of (prompt, seed) alone, whatever
+    the arrival order and the co-scheduled load. So are its tokens on
+    quantized weights and on the CPU; on bf16 weights on CUDA they can
+    change with the batch width, because cuBLAS picks its GEMM kernel by
+    the row count M (:class:`ContinuousBatcher`). Idle slots carry a copy of
     the first prompt, whose output is discarded; a refill re-arms them as
     soon as a request arrives, finished or not.
 

@@ -174,11 +174,10 @@ def encode(params: Dict, cfg: VQConfig, pixels: Tensor) -> Tensor:
     return codebook_encode(cfg, params["codebook"], encode_latents(params, cfg, pixels))
 
 
-def decode(params: Dict, cfg: VQConfig, ids: Tensor,
-           grid_hw: Tuple[int, int]) -> Tensor:
-    """Token ids [B, h*w] -> pixels [B, h*f, w*f, 3] in [-1, 1]."""
-    z = codebook_lookup(cfg, params["codebook"], ids, grid_hw).to(cfg.dtype)
-    z = z.permute(0, 3, 1, 2)
+def decode_latents(params: Dict, cfg: VQConfig, z: Tensor) -> Tensor:
+    """Latents [B, h, w, embed_dim] -> pixels [B, h*f, w*f, 3] in [-1, 1]
+    (the VQ trainer decodes its straight-through latents here)."""
+    z = z.to(cfg.dtype).permute(0, 3, 1, 2)
     z = conv2d(z, params["post_quant_conv_w"], params["post_quant_conv_b"])
     d = params["decoder"]
     h = conv2d(z, d["conv_in_w"], d["conv_in_b"])
@@ -195,6 +194,12 @@ def decode(params: Dict, cfg: VQConfig, ids: Tensor,
     h = group_norm(h, d["norm_out_scale"], d["norm_out_bias"])
     h = conv2d(swish(h), d["conv_out_w"], d["conv_out_b"])
     return h.permute(0, 2, 3, 1)
+
+
+def decode(params: Dict, cfg: VQConfig, ids: Tensor,
+           grid_hw: Tuple[int, int]) -> Tensor:
+    """Token ids [B, h*w] -> pixels [B, h*f, w*f, 3] in [-1, 1]."""
+    return decode_latents(params, cfg, codebook_lookup(cfg, params["codebook"], ids, grid_hw))
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,20 @@
-"""Image files and host-side resizes for the evaluation path, without PIL
+"""Image files and host-side resizes for the evaluation and VQ training paths, without PIL
 (the machine with the GPU has none).
 
   * :func:`write_png` writes a uint8 ``[H, W, 3]`` or ``[H, W]`` array with
     the standard library's ``zlib``, atomically (a ``.tmp`` file, then
     ``os.replace``): a run cut mid-write leaves no truncated PNG that a
     resuming harness would take for a finished image.
-  * :func:`read_png` reads 8-bit grey, RGB and RGBA, non-interlaced, with
-    any of the five row filters, so files written by PIL or another tool
-    read back; anything else is refused with its format named.
-  * :func:`read_image` reads a PNG, or a JPEG through PIL (imported only
-    then: without PIL a JPEG raises with the file's name, never skipped).
+  * :func:`read_png` reads every PNG that PIL opens, with ``zlib`` and
+    numpy only: grey, grey + alpha, RGB, RGBA and palette (with or without
+    ``tRNS``), at every bit depth PNG allows (1, 2, 4, 8, 16), with any of
+    the five row filters, plain or Adam7 interlaced; a file PNG does not
+    allow (a depth its color type has not, no ``PLTE`` in a palette file)
+    is refused with its format named.
+  * :func:`read_image` gives PIL's ``convert("RGB")`` of a PNG bit for bit
+    (16-bit grey clipped, as PIL clips it), or reads a JPEG or WEBP
+    through PIL (imported only then: without PIL such a file raises with
+    its name, never skipped).
   * :func:`resize_bicubic_uint8` is the counterpart of PIL's
     ``resize(..., BICUBIC)``: ``F.interpolate(mode="bicubic",
     antialias=True)`` on a uint8 CPU tensor. :func:`resize_bilinear` is the
@@ -30,8 +35,12 @@ import torch
 import torch.nn.functional as F
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_CHANNELS = {0: 1, 2: 3, 6: 4}  # grey, RGB, RGBA
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # samples per pixel, by color type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _COLOR_NAMES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha", 6: "RGBA"}
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -71,13 +80,16 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
-    """The filtered scanlines -> [h, stride] uint8. None and Up are whole-row
+def _unfilter(raw: bytes, pos: int, h: int, stride: int, bpp: int,
+              path: str) -> Tuple[np.ndarray, int]:
+    """The ``h`` filtered scanlines of ``stride`` bytes at ``raw[pos:]`` ->
+    ([h, stride] uint8, the offset after them). None and Up are whole-row
     numpy; Sub is a per-channel running sum; Average and Paeth depend on the
     reconstructed left neighbour, so they run byte by byte."""
-    if len(raw) < h * (stride + 1):
+    end = pos + h * (stride + 1)
+    if len(raw) < end:
         raise ValueError(f"{path}: the image data is truncated")
-    lines = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
+    lines = np.frombuffer(raw, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -103,24 +115,44 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarra
             raise ValueError(f"{path}: row {y} has filter type {kind}, which PNG does not define")
         out[y] = row
         prev = row
-    return out
+    return out, end
+
+
+def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, c]: uint16 at 16 bits,
+    else uint8 (sub-byte samples unpacked most significant bits first)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2")[:, :w * c].astype(np.uint16).reshape(h, w, c)
+    if depth == 8:
+        return rows[:, :w * c].reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, :w * c * depth].reshape(h, w, c, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=3, dtype=np.uint8)
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit grey (``[H, W]``), RGB (``[H, W, 3]``) or RGBA (``[H, W, 4]``)
-    non-interlaced PNG -> uint8 array; any other PNG raises naming its
-    format."""
+    """Any PNG -> its pixels: ``[H, W]`` grey, ``[H, W, 2]`` grey + alpha,
+    ``[H, W, 3]`` RGB, ``[H, W, 4]`` RGBA. Palette images come out RGB, or
+    RGBA with a ``tRNS`` chunk (indices past the palette are black, as PIL
+    pads it). Sub-byte grey is scaled to 0..255 (x 255, 85, 17), as PIL
+    opens it; 16-bit files come out uint16, every other one uint8. Adam7
+    interlaced files are reassembled. A file PNG does not allow raises."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
-    pos, header, idat = 8, None, []
+    pos, header, palette, trns, idat = 8, None, None, None, []
     while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -128,31 +160,64 @@ def read_png(path: str) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or no IDAT chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _COLOR_CHANNELS or interlace:
+    if depth not in _DEPTHS.get(color, ()) or interlace > 1:
         raise ValueError(
             f"{path}: a {depth}-bit {_COLOR_NAMES.get(color, f'color type {color}')} PNG"
-            f"{' (interlaced)' if interlace else ''}; only 8-bit grey, RGB and RGBA "
-            "non-interlaced PNGs are read")
-    c = _COLOR_CHANNELS[color]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c, path)
-    return pixels.reshape(h, w) if c == 1 else pixels.reshape(h, w, c)
+            f"{f' with interlace method {interlace}' if interlace > 1 else ''}, "
+            "which PNG does not define")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+    c = _CHANNELS[color]
+    bpp = max(1, c * depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+            if pw == 0 or ph == 0:
+                continue  # an empty pass has no scanlines at all
+            rows, off = _unfilter(raw, off, ph, (pw * c * depth + 7) // 8, bpp, path)
+            px[y0::dy, x0::dx] = _samples(rows, pw, c, depth)
+    else:
+        rows, _ = _unfilter(raw, 0, h, (w * c * depth + 7) // 8, bpp, path)
+        px = _samples(rows, w, c, depth)
+    if color == 3:
+        pal = np.zeros((256, 4), np.uint8)
+        pal[:, 3] = 255
+        n = min(256, len(palette) // 3)
+        pal[:n, :3] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
+        if trns is not None:
+            pal[:len(trns[:256]), 3] = np.frombuffer(trns[:256], np.uint8)
+        return pal[px[:, :, 0]][:, :, :4 if trns is not None else 3]
+    if color == 0:
+        px = px[:, :, 0]
+        if depth < 8:
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    return px
 
 
 def read_image(path: str) -> np.ndarray:
-    """A PNG or JPEG file -> uint8 ``[H, W, 3]`` RGB (grey repeated, alpha
-    dropped: PIL's ``convert("RGB")``). A JPEG goes through PIL."""
-    if path.lower().endswith((".jpg", ".jpeg")):
+    """An image file -> uint8 ``[H, W, 3]`` RGB, as PIL's
+    ``Image.open(path).convert("RGB")`` gives it: grey repeated, alpha
+    dropped; from 16 bits, grey clipped to 255 (PIL's ``I;16`` to ``RGB``)
+    and every other kind its high byte. A JPEG or WEBP goes through PIL."""
+    if path.lower().endswith((".jpg", ".jpeg", ".webp")):
         try:
             from PIL import Image
         except ImportError as e:
-            raise RuntimeError(f"{path}: reading a JPEG needs PIL, which is not "
-                               "installed") from e
+            raise RuntimeError(f"{path}: reading a JPEG or WEBP needs PIL, which is "
+                               "not installed") from e
         with Image.open(path) as img:
             return np.asarray(img.convert("RGB"))
     a = read_png(path)
+    if a.dtype == np.uint16:
+        a = (np.minimum(a, 255) if a.ndim == 2 else a >> 8).astype(np.uint8)
     if a.ndim == 2:
         return np.repeat(a[:, :, None], 3, axis=2)
-    return a[:, :, :3]
+    if a.shape[2] == 2:
+        return np.repeat(a[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(a[:, :, :3])
 
 
 def resize_bicubic_uint8(arr: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

@@ -264,10 +264,24 @@ def test_png_reads_every_row_filter(tmp_path, mode, kind):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(tmp_path / "p.png")
-    Image.fromarray(np.zeros((4, 4), np.uint16), "I;16").save(tmp_path / "w.png")
-    (tmp_path / "i.png").write_bytes(filtered_png(sample_image("RGB"), 0, interlace=1))
-    for name, words in (("p.png", "palette"), ("w.png", "16-bit"), ("i.png", "interlaced")):
+    """Palette, 16-bit and interlaced files are read (tests/test_torch_image_io.py);
+    what PNG does not define is refused, with its format named."""
+    good = filtered_png(sample_image("RGB"), 0)
+
+    def with_header(depth, color, interlace=0):
+        ihdr = struct.pack(">IIBBBBB", 53, 37, depth, color, 0, 0, interlace)
+        body = b"IHDR" + ihdr
+        return (good[:8] + struct.pack(">I", 13) + body + struct.pack(">I", zlib.crc32(body))
+                + good[33:])
+
+    for name, data, words in (
+            ("rgb4.png", with_header(4, 2), "4-bit RGB"),
+            ("p16.png", with_header(16, 3), "16-bit palette"),
+            ("c5.png", with_header(8, 5), "color type 5"),
+            ("i2.png", with_header(8, 2, interlace=2), "interlace method 2"),
+            ("nopal.png", with_header(8, 3), "without a PLTE"),
+            ("jpeg.png", b"\xff\xd8\xff\xe0" + good[4:], "not a PNG")):
+        (tmp_path / name).write_bytes(data)
         with pytest.raises(ValueError, match=words):
             image_io.read_png(str(tmp_path / name))
 

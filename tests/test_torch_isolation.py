@@ -1,8 +1,8 @@
 """sjd_tpu_torch imports neither JAX (nor optax or orbax) nor any module of
 sjd_tpu, and none of safetensors, transformers, tokenizers, sentencepiece, PIL, tiktoken, pandas
 and torchvision when its modules are imported (the Emu3, Anole, LlamaGen,
-T5, evaluation, training and tensor-parallel decoding modules, the command lines
-included): the machine with the
+T5, evaluation, training, tensor-parallel decoding and VQ training modules, the
+command lines included): the machine with the
 GPU has none of them, so such an import would break the port there."""
 
 import json
@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     expected = len(list(pkgutil.walk_packages(sjd_tpu_torch.__path__, "sjd_tpu_torch.")))
-    assert seen["n_modules"] == expected >= 52
+    assert seen["n_modules"] == expected >= 69
     for name in ("models.emu3", "models.anole", "models.vq.emu3_vq", "models.vq.emu3_port",
                  "data.emu3_processor", "utils.emu3_tokenizer", "models.llamagen",
                  "models.t5", "core.decomposer", "eval.datasets", "eval.metrics",
@@ -43,6 +43,8 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
                  "eval.eval_model", "eval.recon_eval", "utils.image_io", "parallel.mesh",
                  "parallel.sharding", "parallel.dist", "parallel.training", "parallel.finetune",
                  "data.dataset", "data.sampler", "data.pre_tokenize", "utils.checkpoints",
-                 "parallel.multihost_dryrun", "parallel.tp_decode"):
+                 "parallel.multihost_dryrun", "parallel.tp_decode", "models.vq.train",
+                 "models.vq.lpips", "models.vq.discriminator",
+                 "models.vq.discriminator_stylegan", "models.vq.vq_train"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

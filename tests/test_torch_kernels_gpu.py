@@ -1087,3 +1087,110 @@ def test_engine_refuses_a_cuda_graph_under_a_model_axis(cuda):
                     SamplingParams(do_cfg=False, greedy=True, image_top_k=64, text_top_k=64))
     with pytest.raises(ValueError, match="cuda_graph=False"):
         eng.generate(params, 0, torch.tensor([[1, 2, 3]], device=cuda))
+
+
+def _vq_pair_parts(dev, size=64, batch=2):
+    """One G/D pair's losses and gradients of LLAMAGEN_VQ16 (f32, full
+    widths) with random LPIPS and PatchGAN (n_layers 3, ndf 64), adaptive
+    weight, hinge, disc_start 0, on ``dev`` from weights drawn on the CPU:
+    (G aux, G grads, D aux, D grads, recon). The D half takes the CPU's
+    recon when given one, so a near tie in the quantizer cannot make the
+    two devices' D inputs differ."""
+    import dataclasses
+
+    import numpy as np
+
+    from sjd_tpu_torch.models.vq import train as vt
+    from sjd_tpu_torch.models.vq.discriminator import PatchGANConfig, init_patchgan_params
+    from sjd_tpu_torch.models.vq.lpips import init_lpips_params
+    from sjd_tpu_torch.models.vq.taming import LLAMAGEN_VQ16, init_vq_params
+
+    cfg = dataclasses.replace(LLAMAGEN_VQ16, dtype=torch.float32)
+    tcfg = vt.VQTrainConfig(recon_loss="l2", perceptual_weight=1.0, disc_start=0,
+                            disc_weight=0.5, disc_adaptive_weight=True)
+    dcfg = PatchGANConfig(n_layers=3)
+    to = vt._tree_map
+
+    def move(tree):
+        return to(lambda t: t.to(dev).requires_grad_(t.is_floating_point()), tree)
+
+    params = move(init_vq_params(0, cfg, device="cpu"))
+    d_params = move(init_patchgan_params(2, dcfg, device="cpu"))
+    lp = to(lambda t: t.to(dev), init_lpips_params(1, device="cpu"))
+    x = torch.from_numpy(np.tanh(np.random.RandomState(0).randn(batch, size, size, 3))
+                         .astype(np.float32)).to(dev)
+    loss, g_aux = vt.generator_loss(params, d_params, x, 0, cfg, tcfg, lpips_params=lp,
+                                    disc_cfg=dcfg)
+    g_grads = torch.autograd.grad(loss, vt.tree_leaves(params))
+    with torch.no_grad():
+        recon, _ = vt._vq_forward(params, cfg, x)
+    return to(torch.detach, g_aux), g_grads, recon, (d_params, x, tcfg, dcfg)
+
+
+def _vq_d_parts(recon, d_args):
+    from sjd_tpu_torch.models.vq import train as vt
+
+    d_params, x, tcfg, dcfg = d_args
+    loss, d_aux = vt.discriminator_loss(d_params, x, recon.to(x.device), 0, tcfg, disc_cfg=dcfg)
+    return vt._tree_map(torch.detach, d_aux), torch.autograd.grad(loss, vt.tree_leaves(d_params))
+
+
+def test_vq_train_pair_card_equals_cpu(cuda, monkeypatch):
+    """One G/D pair's losses and gradients at VQ-16's widths on 64 px, batch
+    2, in f32 on the card (cuDNN's TF32 off) against the CPU: each loss
+    within rtol 1e-3 (the logits' means, near 0, within 1e-4 absolute), each
+    gradient leaf within 1e-2 of its largest magnitude (leaves whose
+    gradient cancels to 1e-3-1e-4 of the largest, biases before a
+    normalization, differ by 2.3e-3 of theirs on an H100), a leaf whose CPU
+    gradient is under 1e-6 of the largest (0 in exact arithmetic: attention
+    key biases) under that on the card too."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    want_g, want_gg, recon, want_d_args = _vq_pair_parts("cpu")
+    got_g, got_gg, _, got_d_args = _vq_pair_parts(cuda)
+    want_d, want_dg = _vq_d_parts(recon, want_d_args)
+    got_d, got_dg = _vq_d_parts(recon, got_d_args)
+    for want, got in ((want_g, got_g), (want_d, got_d)):
+        for k, w in want.items():
+            g, w = float(got[k]), float(w)
+            tol = 1e-4 if k.startswith("logits_") else 1e-3 * abs(w)
+            assert abs(g - w) <= tol, (k, g, w)
+    for wants, gots in ((want_gg, got_gg), (want_dg, got_dg)):
+        top = max(float(w.abs().max()) for w in wants)
+        for i, (w, g) in enumerate(zip(wants, gots)):
+            err = float((g.cpu() - w).abs().max())
+            bound = 1e-6 * top if w.abs().max() <= 1e-6 * top else 1e-2 * float(w.abs().max())
+            assert err <= bound, (i, err, bound, float(w.abs().max()) / top)
+
+
+def test_vq_train_steps_run_fused_on_the_card(cuda):
+    """make_vqgan_train_steps on the card: both optimizers fused, two pairs
+    leave no gradient on the other network's leaves, EMA and D move."""
+    import dataclasses
+
+    import numpy as np
+
+    from sjd_tpu_torch.models.vq import train as vt
+    from sjd_tpu_torch.models.vq.discriminator import PatchGANConfig
+    from sjd_tpu_torch.models.vq.lpips import init_lpips_params
+    from sjd_tpu_torch.models.vq.taming import LLAMAGEN_VQ16, init_vq_params
+
+    cfg = dataclasses.replace(LLAMAGEN_VQ16, dtype=torch.float32)
+    tcfg = vt.VQTrainConfig(recon_loss="l2", disc_start=0, disc_adaptive_weight=True)
+    init_fn, g_step, d_step = vt.make_vqgan_train_steps(
+        cfg, tcfg, lpips_params=init_lpips_params(1, device=cuda),
+        disc_cfg=PatchGANConfig(n_layers=3))
+    params = init_vq_params(0, cfg, device=cuda)
+    g_opt, d_params, d_opt, ema = init_fn(params, 2)
+    assert g_opt.defaults["fused"] and d_opt.defaults["fused"]
+    d0 = [t.detach().clone() for t in vt.tree_leaves(d_params)]
+    e0 = [t.detach().clone() for t in vt.tree_leaves(ema)]
+    x = torch.from_numpy(np.tanh(np.random.RandomState(1).randn(2, 64, 64, 3))
+                         .astype(np.float32)).to(cuda)
+    for step in range(2):
+        params, g_opt, ema, g_aux = g_step(params, g_opt, ema, d_params, x, step)
+        assert all(t.grad is None for t in vt.tree_leaves(d_params))
+        d_params, d_opt, d_aux = d_step(d_params, d_opt, params, x, step)
+        assert all(t.grad is None for t in vt.tree_leaves(params))
+        assert all(np.isfinite(float(v)) for v in {**g_aux, **d_aux}.values())
+    assert any(not torch.equal(a, b) for a, b in zip(d0, vt.tree_leaves(d_params)))
+    assert any(not torch.equal(a, b) for a, b in zip(e0, vt.tree_leaves(ema)))
