@@ -256,7 +256,31 @@ the end):
                ContinuousBatcher(row_sharding=mesh), completions and refills
                on every rank equal to the one-process batcher's.
 
-Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31, 31b, 36 and 40-43 starts from kernel launch counts of 0 and
+and the user-facing entry points (sjd_tpu_torch/examples), under
+build/chip_smoke_cli/ (removed at the end):
+
+  44. demo_server - the demo server in-process on the W4A16 7B at 256px
+               (a tokenizer, the bf16 VQ): --slots 2 over StreamingBatcher,
+               3 concurrent /generate requests each equal to its solo run,
+               /health, the page, i2i refused; then --slots 1 answering
+               /generate_i2i with a 500 x 400 PNG (fitted without PIL) and
+               /freeform, and refusing a JPEG while PIL cannot be imported;
+  45. cli_generate - generate_lumina_mgpt (768px W4A16, 2 repeats),
+               generate_emu3 (8B, 256 x 256), generate_llamagen (GPT-XL
+               c2i), generate_image2image (512px) and quant_fidelity (8
+               layers at the 7B's widths), started together as processes:
+               exit 0, images of the stated shapes, the JAX keys and KL
+               int8 <= int4_equil < int4_raw;
+  46. cli_demo_server - python -m sjd_tpu_torch.examples.demo_server with
+               its defaults (GPT-B): its start-up line (0 nvcc builds, the
+               libraries loaded from build/, one capture), /health and one
+               /generate, then terminated;
+  47. latency_budget - the W4A16 7B decode step split into the JAX
+               script's components, alone on the card;
+  48. hbm_bw_probe - the read ceiling against K1's rate (JAX keys), no
+               rate above 105% of the spec sheet's 3350 GB/s.
+
+Each of the paths 6-8, 9b, 9e, 10-11, 12b, 14-17, 19-22, 24-31, 31b, 36, 40-43 and 44 starts from kernel launch counts of 0 and
 reads them just after. A wrapper counts a launch when Python calls it, so a
 capture counts the launches it records and a replay none; the launches that
 ran are the counters minus the capture's records plus each replay's
@@ -4340,6 +4364,363 @@ def phase_kernels_tp(dev) -> list:
     ]
 
 
+# --------------------------------------------------------------------------
+# the user-facing entry points (sjd_tpu_torch/examples)
+# --------------------------------------------------------------------------
+
+CLI_DIR = os.path.join(HERE, "build", "chip_smoke_cli")
+DEMO_SIZE = 256  # the served images: 16 x 17 tokens, so that solo reruns are short
+DEMO_CAPTIONS = {601: "a red fox in the snow", 602: "a lighthouse at dusk",
+                 603: "three green apples"}
+# examples/latency_budget.py:104-262, examples/hbm_bw_probe.py:75-155
+BUDGET_KEYS = {"weights_floor_ms", "fwd_ms", "fwd_half_layers_ms", "fwd_small_head_ms",
+               "sampling_ms", "dispatch_ms", "engine_step_lowfill_ms", "nfe_sampled_lowfill",
+               "engine_step_highfill_ms", "nfe_sampled_highfill", "config"}
+PROBE_KEYS = {"stream_bf16_gbps", "stream_bf16_ms", "stream_s4_gbps", "stream_s4_ms",
+              "dot_s4_gbps", "dot_s4_ms", "stream_s8_gbps", "stream_s8_ms_half",
+              "dot_s8_gbps", "dot_s8_ms_half"}
+QUANT_FIDELITY_VARIANTS = ["int8", "int4_equil", "int4_raw", "int4_a8"]
+
+
+class _Served:
+    """A demo_server.build_server server on a free port, serving from a
+    thread, with JSON requests."""
+
+    def __init__(self, model, *flags):
+        import threading
+
+        from sjd_tpu_torch.examples import demo_server
+
+        self.args = demo_server.parse_args(["--model", "lumina_mgpt", "--port", "0",
+                                            "--target-size", str(DEMO_SIZE), *flags])
+        t0 = time.time()
+        self.server = demo_server.build_server(model, self.args)
+        self.build_s = time.time() - t0
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=120)
+        check(not self.thread.is_alive(), "the demo server's thread did not stop")
+
+    def request(self, path, body=None, timeout=300):
+        return _http(self.url + path, body, timeout)
+
+
+def _http(url, body=None, timeout=300):
+    """(status, body bytes) of a GET, or of a POST of ``body`` as JSON."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_demo_server(dev):
+    """demo_server: sjd_tpu_torch.examples.demo_server in-process on
+    Lumina-mGPT-7B at W4A16 with a tokenizer and the bf16 VQ (as --slots 2
+    loads it), at 256px. A --slots 2 server (StreamingBatcher, prompt
+    bucket 15 + 256, chunk 64): its start-up warm-up request, then 3
+    concurrent POST /generate with their own seeds, each PNG equal to the
+    same request run alone on the same engine (the same left-padded prompt
+    and per-request generator: W4A16 rows do not depend on the batch
+    width); /health counting 3 served; the page; /generate_i2i refused with
+    500. The launch counts start at 0 before the server and are read after
+    its close: each TPU kernel 32 per decode forward (the 271-row prefills
+    and refills take the plain path) and K1 225 per forward. Then a --slots
+    1 server on the same model answers /generate_i2i with a 500 x 400 PNG
+    upload (fitted to its 1120 x 896 crop without PIL) and /freeform,
+    and refuses a JPEG upload with 500 naming PIL while PIL cannot be
+    imported (the card's machine may have PIL: it is blocked for the
+    request)."""
+    import base64
+    import importlib.util
+    import threading
+
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.core.serving import seed_generators
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.utils.image_io import decode_png, encode_png
+
+    t_phase = time.time()
+    model = load_lumina_mgpt(target_size=DEMO_SIZE, quantize=4, tokenizer=ImgTokenizer(),
+                             vq_dtype=torch.bfloat16, device=dev)
+    eng = model.engine
+    table = per_forward(model.params, eng.model_cfg)
+    _zero_launch_counts()
+    slots = _Served(model, "--slots", "2", "--chunk-steps", "64")
+    out = {}
+
+    def client(seed):
+        out[seed] = slots.request("/generate", {"prompt": DEMO_CAPTIONS[seed], "seed": seed})
+
+    try:
+        t0 = time.time()
+        threads = [threading.Thread(target=client, args=(s,)) for s in DEMO_CAPTIONS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        serve_s = time.time() - t0
+        check(not any(t.is_alive() for t in threads), "a demo_server client hung")
+        health = json.loads(slots.request("/health")[1])
+        page_status, page = slots.request("/")
+        i2i_status, i2i_body = slots.request("/generate_i2i", {"prompt": "x <|image|>",
+                                                               "images": []})
+    finally:
+        slots.close()
+    launches = _executed(eng)
+    stats = slots.server.streamer.stats()
+    decode_fwd = eng.stats.eager_steps + eng.stats.replays
+    prefill_fwd = stats["batches"] + stats["refills"]
+    expected = {k: n * (decode_fwd + prefill_fwd if k.startswith("quant") else decode_fwd)
+                for k, n in table.items()}
+    same, width = {}, slots.server.streamer.P
+    for seed, caption in DEMO_CAPTIONS.items():
+        status, body = out[seed]
+        check(status == 200, f"demo_server /generate {seed}: HTTP {status} {body[:300]}")
+        ids = model.extras["prompt_ids_fn"](caption)
+        pad = width - len(ids)
+        alone = eng.generate(model.params, seed_generators([seed], dev),
+                             torch.tensor([[0] * pad + ids], dtype=torch.int32, device=dev),
+                             prompt_mask=torch.tensor([[False] * pad + [True] * len(ids)],
+                                                      device=dev))
+        want = model.extras["decode_image_fn"](alone.tokens[0, :int(alone.length[0])].tolist())
+        got = decode_png(body)
+        same[seed] = bool(got.shape == want.shape and np.array_equal(got, want))
+
+    serial = _Served(model, "--slots", "1")
+    try:
+        yy, xx = np.mgrid[0:400, 0:500] / 500
+        upload = np.clip(np.stack([np.sin(6 * xx), np.cos(5 * yy), xx * yy * 2 - 1], -1)
+                         * 100 + 128, 0, 255).astype(np.uint8)
+        t0 = time.time()
+        up_status, up_body = serial.request("/generate_i2i", {
+            "prompt": "<|image|> the same scene at night", "seed": 3,
+            "images": [base64.b64encode(encode_png(upload)).decode()]})
+        i2i_s = time.time() - t0
+        i2i_prompt = int(model.extras["last_result"].length[0]
+                         - model.extras["last_result"].gen_count[0])
+        ff_status, ff_body = serial.request("/freeform", {
+            "qas": [["draw a fox", "a fox"], ["now the fox at night", None]], "seed": 4})
+        # a JPEG upload with PIL unimportable, as on a machine without it
+        jpeg = {"prompt": "<|image|>", "seed": 5}
+        pil = sys.modules.get("PIL")
+        sys.modules["PIL"] = None
+        try:
+            jpeg_status, jpeg_body = serial.request("/generate_i2i", dict(jpeg, images=[
+                base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(64)).decode()]))
+        finally:
+            if pil is None:
+                del sys.modules["PIL"]
+            else:
+                sys.modules["PIL"] = pil
+        serial_health = json.loads(serial.request("/health")[1])
+    finally:
+        serial.close()
+    emit("demo_server", size=DEMO_SIZE, slots=2, requests=len(DEMO_CAPTIONS),
+         build_s=slots.build_s, warmup_s=slots.server.warmup_s, serve_s=serve_s,
+         health=health, equal_to_solo=same, prompt_width=width, stats=stats,
+         decode_forwards=decode_fwd, prefill_forwards=prefill_fwd, launches=launches,
+         launches_expected=expected, captures=eng.stats.captures,
+         i2i_under_slots=[i2i_status, json.loads(i2i_body)],
+         serial_build_s=serial.build_s, i2i_upload=[500, 400], i2i_status=up_status,
+         i2i_s=i2i_s, i2i_prompt_tokens=i2i_prompt, freeform_status=ff_status,
+         jpeg_status=jpeg_status, jpeg_error=json.loads(jpeg_body) if jpeg_status != 200
+         else None, pil_installed=importlib.util.find_spec("PIL") is not None,
+         serial_health=serial_health,
+         phase_s=time.time() - t_phase)
+    check(all(same.values()), f"demo_server: PNGs differ from their solo runs: {same}")
+    check(health["served"] == 3 and health["completed"] == 4,
+          f"demo_server: /health {health}")
+    check(page_status == 200 and b"/generate_i2i" in page, "demo_server: no page at /")
+    check(i2i_status == 500 and "--slots > 1" in json.loads(i2i_body)["error"],
+          "demo_server: /generate_i2i was not refused under --slots 2")
+    for name, n in launches.items():
+        check(n == expected[name], f"demo_server: {name} launched {n} times, not "
+                                   f"{expected[name]}")
+    for status, body, what in ((up_status, up_body, "/generate_i2i"),
+                               (ff_status, ff_body, "/freeform")):
+        check(status == 200 and decode_png(body).shape == (DEMO_SIZE, DEMO_SIZE, 3),
+              f"demo_server {what}: HTTP {status} {body[:300]}")
+    # the 500 x 400 upload fitted to 1120 x 896: 56 rows of 70 latents and a
+    # <new_line>, the header and <image_end>, beside the text
+    check(i2i_prompt > 56 * 71 + 4, f"demo_server: an i2i prompt of {i2i_prompt} tokens")
+    check(jpeg_status == 500 and "PIL" in json.loads(jpeg_body)["error"],
+          f"demo_server: a JPEG without PIL gave {jpeg_status} {jpeg_body[:300]}")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cli(dev, root: str):
+    """cli_generate and cli_demo_server: the command lines as a user runs
+    them, as processes. First python -m sjd_tpu_torch.examples.demo_server
+    with its defaults (LlamaGen GPT-B c2i, latent 8, one slot) on a free
+    port; then, started together, generate_lumina_mgpt at 768px W4A16 with
+    --num-repeats 2, generate_emu3 (the 8B at full width and depth, its
+    W8A16 default, --image-area 65536), generate_llamagen (GPT-XL, latent
+    16, class 207), generate_image2image at 512px (bf16) and quant_fidelity
+    (8 layers at the 7B's widths): each exits 0 with its image of the
+    stated shape, quant_fidelity with the JAX script's keys and KL int8 <=
+    int4_equil < int4_raw. Then the server, up since, answers /health and
+    one /generate; its start-up line shows 0 nvcc builds (the build phase
+    built the kernels) and the libraries loaded from build/; it is
+    terminated."""
+    import numpy as np
+
+    from sjd_tpu_torch.utils.image_io import decode_png, read_png
+
+    t_phase = time.time()
+    port = _free_port()
+    log = open(os.path.join(root, "demo_server.out"), "w+")
+    server = subprocess.Popen([sys.executable, "-m", "sjd_tpu_torch.examples.demo_server",
+                               "--port", str(port)], cwd=HERE, stdout=log,
+                              stderr=subprocess.STDOUT, text=True)
+    try:
+        shapes = {"lumina": (TARGET_SIZE, 2 * TARGET_SIZE, 3), "emu3": (256, 256, 3),
+                  "llamagen": (256, 256, 3), "i2i": (512, 512, 3)}
+        outs = {k: os.path.join(root, f"{k}.png") for k in shapes}
+        runs = _run_modules([
+            ["sjd_tpu_torch.examples.generate_lumina_mgpt", "--target-size", "768",
+             "--quantize", "4", "--num-repeats", "2", "--out", outs["lumina"]],
+            ["sjd_tpu_torch.examples.generate_emu3", "--image-area", "65536",
+             "--out", outs["emu3"]],
+            ["sjd_tpu_torch.examples.generate_llamagen", "--gpt-model", "GPT-XL",
+             "--latent-size", "16", "--prompt", "207", "--out", outs["llamagen"]],
+            ["sjd_tpu_torch.examples.generate_image2image", "--target-size", "512",
+             "--out", outs["i2i"]],
+            ["sjd_tpu_torch.examples.quant_fidelity"]], os.path.join(root, "logs"))
+        cli_s = time.time() - t_phase
+        images = {k: read_png(p) for k, p in outs.items()}
+        (qf,), qf_s = runs[-1]
+        kl = {k: v["kl"] for k, v in qf["variants"].items()}
+        emit("cli_generate", seconds={k: s for k, (_, s) in zip(
+                 ["lumina", "emu3", "llamagen", "i2i", "quant_fidelity"], runs)},
+             phase_s=cli_s, shapes={k: list(a.shape) for k, a in images.items()},
+             quant_fidelity=qf)
+        for k, a in images.items():
+            check(a.shape == shapes[k] and a.dtype == np.uint8,
+                  f"cli_generate {k}: an image of {a.shape} {a.dtype}, not {shapes[k]}")
+        check(list(qf) == ["mode", "config", "variants"]
+              and list(qf["variants"]) == QUANT_FIDELITY_VARIANTS
+              and all(list(v) == ["kl", "top1_agree", "rel_mse_last_layer",
+                                  "rel_mse_per_layer"] for v in qf["variants"].values()),
+              f"quant_fidelity printed {qf}")
+        check(qf["config"] == "4096d/11008ff/65536V x 8L", f"quant_fidelity: {qf['config']}")
+        check(kl["int8"] <= kl["int4_equil"] < kl["int4_raw"], f"quant_fidelity KL: {kl}")
+
+        t0 = time.time()
+        while True:
+            log.seek(0)
+            text = log.read()
+            if "serving " in text or server.poll() is not None:
+                break
+            check(time.time() - t0 < 300, "demo_server did not start within 300 s")
+            time.sleep(0.5)
+        check(server.poll() is None, f"demo_server exited {server.returncode}: {text[-3000:]}")
+        startup = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+        check(len(startup) == 1, f"demo_server printed {startup}")
+        startup = startup[0]
+        url = f"http://127.0.0.1:{port}"
+        h_status, health = _http(url + "/health")
+        t0 = time.time()
+        g_status, png = _http(url + "/generate", {"prompt": "207", "seed": 1})
+        generate_s = time.time() - t0
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        log.close()
+    health = json.loads(health)
+    emit("cli_demo_server", startup=startup, health=health, generate_s=generate_s,
+         phase_s=time.time() - t_phase)
+    check(h_status == 200 and health["model"] == "llamagen-GPT-B" and health["slots"] == 1,
+          f"demo_server /health: {h_status} {health}")
+    check(g_status == 200 and decode_png(png).shape == (128, 128, 3),
+          f"demo_server /generate: HTTP {g_status}")
+    check(startup["builds"] == 0 and startup["library_hits"] >= 2
+          and startup["captures"] == 1 and startup["warmup_steps"] == 1,
+          f"demo_server start-up: {startup}")
+
+
+def _in_process(main, argv) -> dict:
+    """The one JSON object a command line's ``main(argv)`` prints."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"expected one JSON line, got {buf.getvalue()[-2000:]}")
+    return lines[0]
+
+
+def phase_latency_budget(dev):
+    """latency_budget: python -m sjd_tpu_torch.examples.latency_budget's
+    main, alone on the card (W4A16 7B with the int8 head, CFG batch 2,
+    window 16, int8 KV): every JAX key present and finite; weights_floor
+    beside the bytes bound of the weights it reads."""
+    import numpy as np
+
+    from sjd_tpu_torch.examples import latency_budget
+
+    t0 = time.time()
+    got = _in_process(latency_budget.main, ["--device", "cuda"])
+    # what weights_floor reads: per layer the packed int4 codes and bf16
+    # scales of 4 [4096, 4096], 2 [11008, 4096] and 1 [4096, 11008]
+    # projections, then the int8 [65536, 4096] head and its scales
+    shapes = [(4096, 4096)] * 4 + [(11008, 4096)] * 2 + [(4096, 11008)]
+    read = 32 * sum(n * k // 2 + 2 * n for n, k in shapes) + 65536 * 4096 + 2 * 65536
+    emit("latency_budget", **got, weights_read_gb=read / 1e9,
+         weights_bound_ms=read / HBM_BYTES_PER_S * 1e3, phase_s=time.time() - t0)
+    check(set(got) == BUDGET_KEYS, f"latency_budget keys: {sorted(got)}")
+    check(all(np.isfinite(v) and v > 0 for k, v in got.items() if k != "config"),
+          f"latency_budget: {got}")
+
+
+def phase_hbm_bw_probe(dev):
+    """hbm_bw_probe: python -m sjd_tpu_torch.examples.hbm_bw_probe's main,
+    alone on the card: every JAX key present and finite, and no rate above
+    105% of the spec sheet's 3350 GB/s. Beside it, the rate of PyTorch's
+    sum over the same 1.6 GB as int8 elements, which goes through a float
+    copy of the buffer (the probe reads the bytes as bf16 pairs)."""
+    import numpy as np
+    import torch
+
+    from sjd_tpu_torch.eval.latency import seconds_per_call
+    from sjd_tpu_torch.examples import hbm_bw_probe
+
+    t0 = time.time()
+    got = _in_process(hbm_bw_probe.main, ["--device", "cuda"])
+    w8 = torch.ones((hbm_bw_probe.BLOCKS // 2, hbm_bw_probe.N, hbm_bw_probe.K),
+                    dtype=torch.int8, device=dev)
+    acc = torch.zeros((), device=dev)
+    byte_s = seconds_per_call(lambda: acc.add_(torch.sum(w8, dtype=torch.float32)), dev, 10)
+    emit("hbm_bw_probe", **got, spec_gbps=HBM_BYTES_PER_S / 1e9,
+         int8_elements_sum_gbps=w8.numel() / byte_s / 1e9, phase_s=time.time() - t0)
+    del w8
+    check(set(got) == PROBE_KEYS, f"hbm_bw_probe keys: {sorted(got)}")
+    check(all(np.isfinite(v) and v > 0 for v in got.values()), f"hbm_bw_probe: {got}")
+    for k, v in got.items():
+        check(not k.endswith("_gbps") or v <= 1.05 * HBM_BYTES_PER_S / 1e9,
+              f"hbm_bw_probe: {k} = {v} GB/s, over 105% of the spec sheet")
+
+
 def main() -> int:
     try:
         import torch
@@ -4534,6 +4915,21 @@ def main() -> int:
         phase_dp_serve(dev)
     finally:
         shutil.rmtree(TP_DIR, ignore_errors=True)
+    # the user-facing entry points (sjd_tpu_torch/examples): the demo server
+    # in-process, the command lines as processes, then the two probes alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    try:
+        phase_demo_server(dev)
+        phase_cli(dev, CLI_DIR)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_latency_budget(dev)
+    phase_hbm_bw_probe(dev)
     by_case = {"emu3": e_launches, "llamagen": l_launches, "llamagen_3b": l3_launches,
                "tp2_7b": tp_launches, "tp2_34b": tp34_launches}
     for k in kernels:

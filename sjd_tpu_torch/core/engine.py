@@ -85,6 +85,7 @@ from . import drafts as drafts_lib
 from . import grammar as grammar_lib
 from . import processors as processors_lib
 from . import sampling as sampling_lib
+from ..utils import compile_watch
 
 Tensor = torch.Tensor
 
@@ -726,6 +727,7 @@ class SJDEngine:
                     self._step(params, st, w)
                 main.wait_stream(side)
                 self._warm.add(w)
+                compile_watch.add(warmup_steps=1)
                 self.stats.eager_steps += 1
                 _add(self.stats.eager_by_width, {w: 1})
                 return
@@ -756,7 +758,9 @@ class SJDEngine:
         with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream()):
             self._step_into(params, st, draws, w)
         torch.cuda.synchronize()
-        self.stats.capture_s += time.perf_counter() - t0
+        capture_s = time.perf_counter() - t0
+        compile_watch.add(captures=1, capture_s=capture_s)
+        self.stats.capture_s += capture_s
         launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
         self.stats.captures += 1
         _add(self.stats.captures_by_width, {w: 1})

@@ -103,7 +103,15 @@ def split_generation(tokens: Sequence[int]):
 
 
 def image_grid(images, rows: int, cols: int):
-    """Tile PIL images into one grid image."""
+    """Tile images into one grid image: uint8 ``[H, W, 3]`` arrays into one
+    array with numpy, PIL images into one PIL image."""
+    if not _is_pil(images[0]):
+        h, w = np.asarray(images[0]).shape[:2]
+        grid = np.zeros((rows * h, cols * w, 3), np.uint8)
+        for i, img in enumerate(images):
+            r, c = divmod(i, cols)
+            grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = img
+        return grid
     from PIL import Image
 
     w, h = images[0].size
@@ -155,10 +163,11 @@ class FlexARItemProcessor:
         return list(self.tokenizer.encode(text))
 
     def process_image(self, image) -> List[int]:
-        """PIL image (fitted to a crop size first) or [H, W, 3] array in
-        [-1, 1] (H, W multiples of twice the VQ factor) -> FlexAR block: VQ
-        encode at the image's size, codebook -> BPE ids, rows with
-        <new_line>, the size header."""
+        """A PIL image or a uint8 ``[H, W, 3]`` array of any size (fitted to
+        a crop size first), or an ``[H, W, 3]`` float array in [-1, 1] (H, W
+        multiples of twice the VQ factor) -> FlexAR block: VQ encode at the
+        image's size, codebook -> BPE ids, rows with <new_line>, the size
+        header."""
         from ..models.vq import encode as vq_encode
 
         if self.vq_params is None:
@@ -168,29 +177,43 @@ class FlexARItemProcessor:
             image = self._fit_to_crop(image)
             w_px, h_px = image.size
             arr = np.asarray(image.convert("RGB"), np.float32) / 127.5 - 1.0
+        elif np.asarray(image).dtype == np.uint8:
+            arr = self._fit_to_crop(np.asarray(image)).astype(np.float32) / 127.5 - 1.0
+            h_px, w_px = arr.shape[:2]
         else:
             arr = np.asarray(image, np.float32)
             h_px, w_px = arr.shape[:2]
             if h_px % (2 * f) or w_px % (2 * f):
-                raise ValueError(f"array inputs must be multiples of {2 * f}px (pass a "
-                                 "PIL image for crop-list fitting)")
+                raise ValueError(f"float array inputs must be multiples of {2 * f}px (pass "
+                                 "uint8 pixels or a PIL image for crop-list fitting)")
         dev = self.vq_params["codebook"].device
         with torch.no_grad():
             ids = vq_encode(self.vq_params, self.vq_cfg, torch.from_numpy(arr[None]).to(dev))
         grid = ids[0].cpu().numpy().astype(np.int32).reshape(h_px // f, w_px // f)
         return image_block_from_grid(grid, h_px, w_px, mapping=self.mapping)
 
-    def _fit_to_crop(self, image):
-        """Deterministic var_center_crop: the crop whose aspect ratio is
-        nearest, resized to cover, centre-cropped."""
-        w_px, h_px = image.size
+    def crop_box(self, w_px: int, h_px: int) -> Tuple[int, int, int, int, int, int]:
+        """The deterministic var_center_crop of a ``w_px`` x ``h_px`` image:
+        the crop size whose aspect ratio is nearest, the size that covers it
+        and the centred box: (resize w, resize h, left, top, crop w, crop h)."""
         cw, ch = min(self.crop_size_list,
                      key=lambda s: abs(math.log((w_px / h_px) / (s[0] / s[1]))))
         scale = max(cw / w_px, ch / h_px)
         rw, rh = max(cw, round(w_px * scale)), max(ch, round(h_px * scale))
-        image = image.resize((rw, rh))
-        left, top = (rw - cw) // 2, (rh - ch) // 2
-        return image.crop((left, top, left + cw, top + ch))
+        return rw, rh, (rw - cw) // 2, (rh - ch) // 2, cw, ch
+
+    def _fit_to_crop(self, image):
+        """A PIL image (resized by PIL) or a uint8 [H, W, 3] array (resized
+        by ``resize_bicubic_uint8``, PIL's default bicubic), fitted to the
+        :meth:`crop_box`."""
+        if _is_pil(image):
+            rw, rh, left, top, cw, ch = self.crop_box(*image.size)
+            image = image.resize((rw, rh))
+            return image.crop((left, top, left + cw, top + ch))
+        from ..utils.image_io import resize_bicubic_uint8
+
+        rw, rh, left, top, cw, ch = self.crop_box(image.shape[1], image.shape[0])
+        return resize_bicubic_uint8(image, (rh, rw))[top:top + ch, left:left + cw]
 
     def multimodal_prompt_ids(self, qas: List[List[Optional[str]]],
                               images: Sequence = ()) -> List[int]:

@@ -30,7 +30,7 @@ def default_variants(model_cfg) -> Dict[str, dict]:
     }
 
 
-def _timeit(fn: Callable[[], torch.Tensor], dev: torch.device, iters: int) -> float:
+def seconds_per_call(fn: Callable[[], object], dev: torch.device, iters: int) -> float:
     """Seconds per call of ``fn``: eager on the CPU, a replayed CUDA graph of
     one call on CUDA."""
     if dev.type != "cuda":
@@ -66,15 +66,19 @@ def decode_step_latencies(
     cache_fill: int = 1200,
     iters: int = 20,
     variants: Optional[Dict[str, dict]] = None,
+    params_fn: Optional[Callable] = None,
     device=None,
 ) -> Dict[str, float]:
     """Seconds per window forward for each variant (``default_variants``
     when None): a config override of ``model_cfg``. An overridden config
-    gets fresh random parameters (seed 0) on ``device``; ``params`` (on
-    ``device``) serve the variant without overrides."""
+    gets ``params_fn(cfg)``, by default fresh random parameters (seed 0) on
+    ``device``; ``params`` (on ``device``) serve the variant without
+    overrides."""
     from ..models import decoder_model_fns, init_params
 
     dev = resolve_device(device)
+    if params_fn is None:
+        params_fn = lambda c: init_params(0, c, device=dev)  # noqa: E731
     if variants is None:
         variants = default_variants(model_cfg)
     ids = torch.zeros((batch, window), dtype=torch.int32, device=dev)
@@ -86,10 +90,10 @@ def decode_step_latencies(
     with torch.no_grad():
         for name, overrides in variants.items():
             cfg = dataclasses.replace(model_cfg, **overrides)
-            p = init_params(0, cfg, device=dev) if overrides else params
+            p = params_fn(cfg) if overrides else params
             model = decoder_model_fns(cfg, max_positions=buf_len + window + 8, device=dev)
             kv = model.init_cache(batch, buf_len)
-            results[name] = _timeit(
+            results[name] = seconds_per_call(
                 lambda: model.forward(p, ids, pos, kv, ce, valid)[0], dev, iters)
             del p, kv
     return results

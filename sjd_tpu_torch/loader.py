@@ -146,6 +146,9 @@ def load_lumina_mgpt(
     tokenizer=None,  # any object with encode (and get_vocab for the image tokens)
     quantize=False,  # True/8: W8A16; 4/"int4": W4A16 + int8 head; "w4a8": W4A8
     embed_bits: Optional[int] = None,  # 8: the int8 per-row embedding table
+    # e.g. torch.bfloat16: the VQ's weights and activations in bf16 (the
+    # codebook stays f32), as demo_server --slots > 1 serves it
+    vq_dtype: Optional[torch.dtype] = None,
     model_cfg=None,  # DecoderConfig override; must keep the FlexAR vocab layout
     vq_cfg=None,  # VQConfig override
     device=None,
@@ -163,6 +166,8 @@ def load_lumina_mgpt(
                         model_cfg=model_cfg, device=dev)
     params = _build_decoder_params(eng.model_cfg, ckpt_dir, quantize, embed_bits, dev)
     vq_cfg = vq_cfg if vq_cfg is not None else CHAMELEON_VQ
+    if vq_dtype is not None:
+        vq_cfg = dataclasses.replace(vq_cfg, dtype=vq_dtype)
     if vq_ckpt:
         from .utils.port import load_torch_checkpoint
 
@@ -216,7 +221,8 @@ def load_lumina_mgpt(
     def sample_freeform_fn(qas, images=(), rng_seed: Optional[int] = None) -> np.ndarray:
         """A multi-turn conversation ([question, answer or None] turns whose
         text may hold ``<|image|>``, filled from ``images`` in order: PIL
-        images or [H, W, 3] arrays in [-1, 1]) -> the image it generates."""
+        images or uint8 [H, W, 3] arrays of any size, or float [H, W, 3]
+        arrays in [-1, 1]) -> the image it generates."""
         if item_proc is None:
             raise ValueError("image-input prompting needs a tokenizer")
         return generate_ids(item_proc.multimodal_prompt_ids(qas, images) + header, rng_seed)

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -58,7 +59,10 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source that has no current library, one nvcc
     process per source, all started together. Returns each newly built
     source's compiler log (ptxas register and shared-memory report)."""
+    from ..utils import compile_watch
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = library_path(name)
@@ -77,6 +81,8 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+    if procs:
+        compile_watch.add(build_s=time.perf_counter() - t0, builds=len(procs) - len(failed))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
@@ -92,7 +98,12 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all([name])
+            if library_path(name).exists():
+                from ..utils import compile_watch
+
+                compile_watch.add(library_hits=1)
+            else:
+                build_all([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib

@@ -1,23 +1,26 @@
 """Image files and host-side resizes for the evaluation and VQ training paths, without PIL
 (the machine with the GPU has none).
 
-  * :func:`write_png` writes a uint8 ``[H, W, 3]`` or ``[H, W]`` array with
-    the standard library's ``zlib``, atomically (a ``.tmp`` file, then
+  * :func:`encode_png` makes the bytes of a PNG from a uint8 ``[H, W, 3]``
+    or ``[H, W]`` array with the standard library's ``zlib``;
+    :func:`write_png` writes them atomically (a ``.tmp`` file, then
     ``os.replace``): a run cut mid-write leaves no truncated PNG that a
     resuming harness would take for a finished image.
-  * :func:`read_png` reads every PNG that PIL opens, with ``zlib`` and
-    numpy only: grey, grey + alpha, RGB, RGBA and palette (with or without
-    ``tRNS``), at every bit depth PNG allows (1, 2, 4, 8, 16), with any of
-    the five row filters, plain or Adam7 interlaced; a file PNG does not
-    allow (a depth its color type has not, no ``PLTE`` in a palette file)
-    is refused with its format named.
+  * :func:`decode_png` reads the bytes of every PNG that PIL opens, with
+    ``zlib`` and numpy only: grey, grey + alpha, RGB, RGBA and palette (with
+    or without ``tRNS``), at every bit depth PNG allows (1, 2, 4, 8, 16),
+    with any of the five row filters, plain or Adam7 interlaced; a file PNG
+    does not allow (a depth its color type has not, no ``PLTE`` in a
+    palette file) is refused with its format named. :func:`read_png` is
+    the same on a file.
   * :func:`read_image` gives PIL's ``convert("RGB")`` of a PNG bit for bit
     (16-bit grey clipped, as PIL clips it), or reads a JPEG or WEBP
     through PIL (imported only then: without PIL such a file raises with
-    its name, never skipped).
-  * :func:`resize_bicubic_uint8` is the counterpart of PIL's
-    ``resize(..., BICUBIC)``: ``F.interpolate(mode="bicubic",
-    antialias=True)`` on a uint8 CPU tensor. :func:`resize_bilinear` is the
+    its name, never skipped). :func:`image_from_bytes` does the same for
+    the bytes of an upload, told apart by the PNG signature.
+  * :func:`resize_bicubic_uint8` is PIL's ``resize(..., BICUBIC)`` bit for
+    bit: its fixed-point two-pass resampling written in numpy.
+    :func:`resize_bilinear` is the
     counterpart of ``jax.image.resize(method="bilinear")`` on floats:
     ``F.interpolate(mode="bilinear", antialias=True, align_corners=False)``
     (without ``antialias`` a downsample samples instead of averaging).
@@ -25,6 +28,7 @@
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -48,10 +52,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
-    """Write a uint8 ``[H, W]``, ``[H, W, 3]`` or ``[H, W, 4]`` array to
-    ``path`` as a PNG (every row with filter 0), through ``path + ".tmp"``
-    and ``os.replace``."""
+def encode_png(arr: np.ndarray) -> bytes:
+    """A uint8 ``[H, W]``, ``[H, W, 3]`` or ``[H, W, 4]`` array -> the bytes
+    of a PNG (every row with filter 0)."""
     a = np.asarray(arr)
     if a.dtype != np.uint8:
         raise ValueError(f"a PNG is written from uint8, not {a.dtype}")
@@ -64,8 +67,14 @@ def write_png(path: str, arr: np.ndarray) -> None:
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(a).reshape(h, w * c)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
-    data = (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """Write :func:`encode_png` of ``arr`` to ``path``, through ``path +
+    ".tmp"`` and ``os.replace``."""
+    data = encode_png(arr)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -132,14 +141,19 @@ def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Any PNG -> its pixels: ``[H, W]`` grey, ``[H, W, 2]`` grey + alpha,
-    ``[H, W, 3]`` RGB, ``[H, W, 4]`` RGBA. Palette images come out RGB, or
-    RGBA with a ``tRNS`` chunk (indices past the palette are black, as PIL
-    pads it). Sub-byte grey is scaled to 0..255 (x 255, 85, 17), as PIL
-    opens it; 16-bit files come out uint16, every other one uint8. Adam7
-    interlaced files are reassembled. A file PNG does not allow raises."""
+    """:func:`decode_png` of the file at ``path``."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "the PNG data") -> np.ndarray:
+    """The bytes of any PNG -> its pixels: ``[H, W]`` grey, ``[H, W, 2]``
+    grey + alpha, ``[H, W, 3]`` RGB, ``[H, W, 4]`` RGBA. Palette images come
+    out RGB, or RGBA with a ``tRNS`` chunk (indices past the palette are
+    black, as PIL pads it). Sub-byte grey is scaled to 0..255 (x 255, 85,
+    17), as PIL opens it; 16-bit files come out uint16, every other one
+    uint8. Adam7 interlaced files are reassembled. A file PNG does not allow
+    raises, naming ``path``."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
     pos, header, palette, trns, idat = 8, None, None, None, []
@@ -203,14 +217,35 @@ def read_image(path: str) -> np.ndarray:
     dropped; from 16 bits, grey clipped to 255 (PIL's ``I;16`` to ``RGB``)
     and every other kind its high byte. A JPEG or WEBP goes through PIL."""
     if path.lower().endswith((".jpg", ".jpeg", ".webp")):
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(f"{path}: reading a JPEG or WEBP needs PIL, which is "
-                               "not installed") from e
-        with Image.open(path) as img:
-            return np.asarray(img.convert("RGB"))
-    a = read_png(path)
+        with open(path, "rb") as f:
+            return _pil_rgb(f.read(), path)
+    return _rgb(read_png(path))
+
+
+def image_from_bytes(data: bytes, name: str = "the image") -> np.ndarray:
+    """The bytes of an image file -> uint8 ``[H, W, 3]`` RGB, as
+    :func:`read_image` reads the file: a PNG (told by its signature) without
+    PIL, any other format through PIL, which raises naming ``name`` when
+    PIL is not installed."""
+    if data[:8] == _PNG_SIGNATURE:
+        return _rgb(decode_png(data, name))
+    return _pil_rgb(data, name)
+
+
+def _pil_rgb(data: bytes, name: str) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"{name}: reading an image that is not a PNG (a JPEG or WEBP) "
+                           "needs PIL, which is not installed") from e
+    import io
+
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("RGB"))
+
+
+def _rgb(a: np.ndarray) -> np.ndarray:
+    """:func:`decode_png`'s pixels -> uint8 RGB, as PIL's ``convert``."""
     if a.dtype == np.uint16:
         a = (np.minimum(a, 255) if a.ndim == 2 else a >> 8).astype(np.uint8)
     if a.ndim == 2:
@@ -220,16 +255,58 @@ def read_image(path: str) -> np.ndarray:
     return np.ascontiguousarray(a[:, :, :3])
 
 
+# PIL's 8-bit resampling (libImaging/Resample.c): coefficients in fixed
+# point with this many fraction bits, rounded and clipped after each pass
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic_filter (a = -0.5), in its order of operations."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _resample_axis(a: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of PIL's two-pass resize along ``axis`` of a uint8 array:
+    precompute_coeffs and normalize_coeffs_8bpc, then each output sample
+    as the fixed-point sum of its taps, rounded and clipped to uint8."""
+    in_size = a.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    w = _bicubic(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
+    ww = np.zeros(out_size)
+    for j in range(ksize):  # in order, as the C loop sums
+        ww += w[:, j]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    k = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS)).astype(np.int64)
+    idx = np.minimum(xmin[:, None] + taps[None, :], in_size - 1)  # past xmax: weight 0
+    src = np.moveaxis(a, axis, -1)
+    acc = (src[..., idx].astype(np.int64) * k).sum(-1) + (1 << (_PRECISION_BITS - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, -1, axis)
+
+
 def resize_bicubic_uint8(arr: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """uint8 ``[H, W, C]`` -> uint8 ``[h, w, C]`` for ``size = (h, w)``, on the
-    host: the counterpart of PIL's ``resize((w, h), BICUBIC)``, which keeps
-    an image of the same size as it is."""
-    if tuple(arr.shape[:2]) == tuple(size):
-        return np.array(arr)
-    t = torch.from_numpy(np.ascontiguousarray(arr)).permute(2, 0, 1)[None]
-    out = F.interpolate(t, size=tuple(size), mode="bicubic", antialias=True,
-                        align_corners=False)
-    return out[0].permute(1, 2, 0).contiguous().numpy()
+    host: PIL's ``resize((w, h), BICUBIC)`` (its default filter) bit for
+    bit, in numpy: the horizontal pass, then the vertical one, each skipped
+    where the size stays."""
+    a = np.ascontiguousarray(arr)
+    h, w = size
+    if a.shape[1] != w:
+        a = _resample_axis(a, 1, w)
+    if a.shape[0] != h:
+        a = _resample_axis(a, 0, h)
+    return np.array(a)
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

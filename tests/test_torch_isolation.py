@@ -2,7 +2,7 @@
 sjd_tpu, and none of safetensors, transformers, tokenizers, sentencepiece, PIL, tiktoken, pandas
 and torchvision when its modules are imported (the Emu3, Anole, LlamaGen,
 T5, evaluation, training, tensor-parallel decoding and VQ training modules, the
-command lines included): the machine with the
+command lines of sjd_tpu_torch/examples and the start-up accounting included): the machine with the
 GPU has none of them, so such an import would break the port there."""
 
 import json
@@ -45,6 +45,11 @@ def test_port_imports_no_jax_and_no_sjd_tpu():
                  "data.dataset", "data.sampler", "data.pre_tokenize", "utils.checkpoints",
                  "parallel.multihost_dryrun", "parallel.tp_decode", "models.vq.train",
                  "models.vq.lpips", "models.vq.discriminator",
-                 "models.vq.discriminator_stylegan", "models.vq.vq_train"):
+                 "models.vq.discriminator_stylegan", "models.vq.vq_train",
+                 "utils.compile_watch", "examples.generate_lumina_mgpt",
+                 "examples.generate_emu3", "examples.generate_llamagen",
+                 "examples.generate_image2image", "examples.quant_fidelity",
+                 "examples.hbm_bw_probe", "examples.latency_budget",
+                 "examples.demo_server"):
         assert f"sjd_tpu_torch.{name}" in seen["names"], name
     assert seen["leaked"] == [], f"sjd_tpu modules imported: {seen['leaked']}"

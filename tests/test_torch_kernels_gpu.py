@@ -1194,3 +1194,122 @@ def test_vq_train_steps_run_fused_on_the_card(cuda):
         assert all(np.isfinite(float(v)) for v in {**g_aux, **d_aux}.values())
     assert any(not torch.equal(a, b) for a, b in zip(d0, vt.tree_leaves(d_params)))
     assert any(not torch.equal(a, b) for a, b in zip(e0, vt.tree_leaves(ema)))
+
+
+class _ImgTok:
+    """A tokenizer with the Chameleon IMGIMG names (a seeded permutation onto
+    [4, 4 + 8192)) and 12 text ids from a hash of the text."""
+
+    def __init__(self):
+        import numpy as np
+
+        from sjd_tpu_torch.data.vocab_translation import image_token_name
+
+        perm = np.random.default_rng(3).permutation(8192)
+        self._vocab = {image_token_name(i): int(4 + p) for i, p in enumerate(perm)}
+
+    def get_vocab(self):
+        return dict(self._vocab)
+
+    def encode(self, text):
+        import zlib
+
+        return [9000 + zlib.crc32(f"{i}:{text}".encode()) % 4000 for i in range(12)]
+
+
+def _small_lumina_model(cuda, **kw):
+    """load_lumina_mgpt at 128px on _small_lumina's decoder (2 layers, heads
+    of 128, int8 cache), a small VQ and the tokenizer above."""
+    from sjd_tpu_torch.loader import load_lumina_mgpt
+    from sjd_tpu_torch.models import transformer as pt
+    from sjd_tpu_torch.models.vq import VQConfig
+
+    cfg = pt.DecoderConfig(vocab_size=65536, hidden_size=512, intermediate_size=1024,
+                           num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                           qk_norm=True, kv_quant=True, max_position_embeddings=1024)
+    vq_cfg = VQConfig(ch=32, ch_mult=(1, 1, 1, 1, 1), num_res_blocks=1, z_channels=32,
+                      embed_dim=16, n_embed=8192)
+    return load_lumina_mgpt(target_size=128, model_cfg=cfg, vq_cfg=vq_cfg, tokenizer=_ImgTok(),
+                            device=cuda, **kw)
+
+
+def test_demo_server_slots_mode_equals_solo_runs_on_the_card(cuda):
+    """examples/demo_server in --slots 2 over the captured step on W4A16
+    weights (whose rows do not depend on the batch width): its warm-up
+    request captures the step once (compile_watch counts it), then 3
+    concurrent /generate requests each give the PNG of the same request run
+    alone on the same engine (the padded prompt, its own generator)."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from sjd_tpu_torch.core.serving import seed_generators
+    from sjd_tpu_torch.examples import demo_server
+    from sjd_tpu_torch.utils import compile_watch
+    from sjd_tpu_torch.utils.image_io import decode_png
+
+    model = _small_lumina_model(cuda, quantize=4)
+    since = compile_watch.snapshot()
+    args = demo_server.parse_args(["--model", "lumina_mgpt", "--port", "0", "--slots", "2",
+                                   "--chunk-steps", "16", "--prompt-bucket", "8"])
+    server = demo_server.build_server(model, args)
+    d = compile_watch.delta(since)
+    assert (d["captures"], d["warmup_steps"]) == (1, 1) and d["capture_s"] > 0
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    prompts = {11: "a red fox", 12: "a lighthouse", 13: "three apples"}
+    out = {}
+
+    def client(seed):
+        req = urllib.request.Request(url + "/generate", method="POST", data=json.dumps(
+            {"prompt": prompts[seed], "seed": seed}).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out[seed] = r.read()
+
+    try:
+        threads = [threading.Thread(target=client, args=(s,)) for s in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    assert compile_watch.delta(since)["captures"] == 1  # no capture beside the handlers
+    eng, width = model.engine, server.streamer.P
+    for seed, prompt in prompts.items():
+        ids = model.extras["prompt_ids_fn"](prompt)
+        pad = width - len(ids)
+        alone = eng.generate(model.params, seed_generators([seed], cuda),
+                             torch.tensor([[0] * pad + ids], device=cuda),
+                             prompt_mask=torch.tensor([[False] * pad + [True] * len(ids)],
+                                                      device=cuda))
+        want = model.extras["decode_image_fn"](alone.tokens[0, :int(alone.length[0])].tolist())
+        assert np.array_equal(decode_png(out[seed]), want), seed
+
+
+def test_uint8_upload_is_crop_fitted_without_pil(cuda, monkeypatch):
+    """An upload of a size no crop has, as uint8 pixels, through
+    process_image on the card with PIL unimportable: fitted to its crop and
+    encoded (what /generate_i2i does on a machine without PIL)."""
+    import sys
+
+    import numpy as np
+
+    from sjd_tpu_torch.data.image_processing import generate_crop_size_list
+    from sjd_tpu_torch.data.item_processor import image_grid_from_block
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    model = _small_lumina_model(cuda)
+    proc = model.extras["item_processor"]
+    proc.crop_size_list = generate_crop_size_list(16, 32)
+    a = (np.random.RandomState(0).rand(100, 130, 3) * 255).astype(np.uint8)
+    rw, rh, left, top, cw, ch = proc.crop_box(130, 100)
+    block = proc.process_image(a)
+    grid = image_grid_from_block(block, mapping=model.extras["mapping"])
+    assert grid.shape == (ch // 16, cw // 16)
