@@ -63,11 +63,21 @@ its graph are the same either way.
 ``lax.cond`` between the two step widths). The state keeps its full-width
 shapes; on CUDA the width-1 step is a second captured graph over the same
 state tensors, in the same memory pool as the first. The step writes
-``finished.all()`` and ``any_multi`` of the next step into ``flags``, which
-the host reads in one copy after each step (the default path reads it too)
-and replays one graph or the other. A step of either width draws the
-full-width random inputs and reads their first rows, so a slot's
-generator advances the same way on both.
+``finished.all()``, ``any_multi`` of the next step and the count of
+finished slots into ``flags``, which the host reads in one copy before each
+step (the default path reads it too) and replays one graph or the other.
+A step of either width draws the full-width random inputs and reads their
+first rows, so a slot's generator advances the same way on both. The
+flags read also counts the slot-steps spent on finished slots
+(``EngineState.finished_slot_steps``).
+
+Tracing (``utils/tracing.py``): while it is on, each call is a span
+(``engine.generate``, ``engine.resume``, ``engine.refill``, with its
+prefill as ``engine.prefill``) and each decode step records its phases as
+children of the call: ``engine.step.wait`` (the flags read, where the host
+waits for the card), ``engine.step.draws``, ``engine.step.copy`` (into the
+graph's buffers) and ``engine.step.replay``, or ``engine.step.eager`` for
+a step run eagerly, and ``engine.capture`` for a capture.
 """
 
 from __future__ import annotations
@@ -85,7 +95,7 @@ from . import drafts as drafts_lib
 from . import grammar as grammar_lib
 from . import processors as processors_lib
 from . import sampling as sampling_lib
-from ..utils import compile_watch
+from ..utils import compile_watch, tracing
 
 Tensor = torch.Tensor
 
@@ -148,10 +158,15 @@ class EngineState:
     prompt_len: Tensor  # [B] real prompt length
     prompt_rows: int  # padded prompt rows in `tokens`
     accept_hist: Tensor  # [W+1] int32: decode steps by accepted length
-    # [2] int32 for the next step: every slot finished; a live slot inside
-    # [interval_l, interval_r). The step writes them, the host reads both in
-    # one copy
+    # [3] int32 for the next step: every slot finished; a live slot inside
+    # [interval_l, interval_r); the finished slots. The step writes them, the
+    # host reads them in one copy
     flags: Tensor
+    # decode steps x slots, and those of slots that had finished before the
+    # step (they wait for the caller's next chunk boundary); host counts
+    # from the flags read
+    slot_steps: int = 0
+    finished_slot_steps: int = 0
 
 
 # the EngineState tensors with one row per slot (refill selects them per slot)
@@ -315,12 +330,13 @@ class SJDEngine:
                                           prompt_embeds, neg_prompt_embeds)
         gens = self._normalize_rng(rng, prompt.shape[0])
         cap = self.config.resolved_nfe_cap() if max_steps is None else max_steps
-        with torch.no_grad():
-            state = self._prefill_state(params, gens, prompt, prompt_mask,
-                                        neg_prompt, neg_mask, gstate, embeds)
+        with tracing.span("engine.generate"), torch.no_grad():
+            with tracing.span("engine.prefill"):
+                state = self._prefill_state(params, gens, prompt, prompt_mask,
+                                            neg_prompt, neg_mask, gstate, embeds)
             self._run(params, state, cap)
             self._check_ranks_agree(params, state)
-        result = self._result_from_state(state)
+            result = self._result_from_state(state)
         return (result, state) if return_state else result
 
     def resume(self, params, state: EngineState, max_steps: Optional[int] = None,
@@ -332,10 +348,10 @@ class SJDEngine:
         params = self._local_params(params)
         cap = state.nfe + (max_steps if max_steps is not None
                            else self.config.resolved_nfe_cap())
-        with torch.no_grad():
+        with tracing.span("engine.resume"), torch.no_grad():
             self._run(params, state, cap)
             self._check_ranks_agree(params, state)
-        result = self._result_from_state(state)
+            result = self._result_from_state(state)
         return (result, state) if return_state else result
 
     def refill(
@@ -368,58 +384,61 @@ class SJDEngine:
         ignored). With None each refilled slot gets one derived from its old
         generator's initial seed and the NFE, without advancing any
         generator."""
-        params = self._local_params(params)
-        self._check_own(state)
-        prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds = \
-            self._normalize_prompt_inputs(prompt, prompt_mask, neg_prompt, neg_mask, gstate,
-                                          prompt_embeds, neg_prompt_embeds)
-        B = prompt.shape[0]
-        dev = self.device
-        mask = np.asarray(refill_mask.cpu() if isinstance(refill_mask, Tensor)
-                          else refill_mask, dtype=bool).reshape(B)
-        if rng is None:
-            new_gens = [_derived_generator(g, state.nfe) for g in state.gens]
-        else:
-            new_gens = self._normalize_rng(rng, B)
-        # the other slots' prefill noise comes from throwaway generators, so
-        # that their own do not advance
-        fill_gens = [new_gens[b] if mask[b] else torch.Generator(device=dev)
-                     for b in range(B)]
-        P_rows = prompt.shape[1]
-        if self.config.cfg_mode == "neg_prompt" and self.sampling.do_cfg:
-            P_rows = max(P_rows, neg_prompt.shape[1])
-        small = min(((P_rows + self.config.window + 512) // 512) * 512, state.valid.shape[1])
-        with torch.no_grad():
-            fresh = self._prefill_state(params, fill_gens, prompt, prompt_mask, neg_prompt,
-                                        neg_mask, gstate, embeds, kv_buf_rows=small)
-            if fresh.tokens.shape != state.tokens.shape:
-                raise ValueError(
-                    f"refill prompt rows must reproduce the engine's buffer: got "
-                    f"{tuple(fresh.tokens.shape)} vs {tuple(state.tokens.shape)}; pad "
-                    f"refill prompts to the original prompt width")
-            idx_b = torch.as_tensor(np.flatnonzero(mask), device=dev)
-            idx_s = torch.as_tensor(np.flatnonzero(np.tile(mask, self._S_factor)), device=dev)
+        with tracing.span("engine.refill"):
+            params = self._local_params(params)
+            self._check_own(state)
+            prompt, prompt_mask, neg_prompt, neg_mask, gstate, embeds = \
+                self._normalize_prompt_inputs(prompt, prompt_mask, neg_prompt, neg_mask, gstate,
+                                              prompt_embeds, neg_prompt_embeds)
+            B = prompt.shape[0]
+            dev = self.device
+            mask = np.asarray(refill_mask.cpu() if isinstance(refill_mask, Tensor)
+                              else refill_mask, dtype=bool).reshape(B)
+            if rng is None:
+                new_gens = [_derived_generator(g, state.nfe) for g in state.gens]
+            else:
+                new_gens = self._normalize_rng(rng, B)
+            # the other slots' prefill noise comes from throwaway generators, so
+            # that their own do not advance
+            fill_gens = [new_gens[b] if mask[b] else torch.Generator(device=dev)
+                         for b in range(B)]
+            P_rows = prompt.shape[1]
+            if self.config.cfg_mode == "neg_prompt" and self.sampling.do_cfg:
+                P_rows = max(P_rows, neg_prompt.shape[1])
+            small = min(((P_rows + self.config.window + 512) // 512) * 512, state.valid.shape[1])
+            with torch.no_grad():
+                with tracing.span("engine.prefill"):
+                    fresh = self._prefill_state(params, fill_gens, prompt, prompt_mask,
+                                                neg_prompt, neg_mask, gstate, embeds,
+                                                kv_buf_rows=small)
+                if fresh.tokens.shape != state.tokens.shape:
+                    raise ValueError(
+                        f"refill prompt rows must reproduce the engine's buffer: got "
+                        f"{tuple(fresh.tokens.shape)} vs {tuple(state.tokens.shape)}; pad "
+                        f"refill prompts to the original prompt width")
+                idx_b = torch.as_tensor(np.flatnonzero(mask), device=dev)
+                idx_s = torch.as_tensor(np.flatnonzero(np.tile(mask, self._S_factor)), device=dev)
 
-            def put(dst, src, idx):
-                dst.index_copy_(0, idx, src.index_select(0, idx))
+                def put(dst, src, idx):
+                    dst.index_copy_(0, idx, src.index_select(0, idx))
 
-            R = fresh.valid.shape[1]
-            # KV leaves are [S, NL, rows, ...]: only rows [0, R) carry the
-            # fresh prompt; rows past R are the slot's old history, which
-            # its next windows overwrite before they are read
-            for dst, src in zip(state.kv, fresh.kv):
-                if dst is not None:
-                    put(dst[:, :, :R], src, idx_s)
-            put(state.valid[:, :R], fresh.valid, idx_s)
-            put(state.n_pad, fresh.n_pad, idx_s)
-            for name in _B_FIELDS:
-                put(getattr(state, name), getattr(fresh, name), idx_b)
-            for dst, src in zip(state.gstate, fresh.gstate):
-                put(dst, src, idx_b)
-        for b in np.flatnonzero(mask):
-            state.gens[b] = new_gens[b]
-        state.nfe += 1  # the refill prefill forward
-        return state
+                R = fresh.valid.shape[1]
+                # KV leaves are [S, NL, rows, ...]: only rows [0, R) carry the
+                # fresh prompt; rows past R are the slot's old history, which
+                # its next windows overwrite before they are read
+                for dst, src in zip(state.kv, fresh.kv):
+                    if dst is not None:
+                        put(dst[:, :, :R], src, idx_s)
+                put(state.valid[:, :R], fresh.valid, idx_s)
+                put(state.n_pad, fresh.n_pad, idx_s)
+                for name in _B_FIELDS:
+                    put(getattr(state, name), getattr(fresh, name), idx_b)
+                for dst, src in zip(state.gstate, fresh.gstate):
+                    put(dst, src, idx_b)
+            for b in np.flatnonzero(mask):
+                state.gens[b] = new_gens[b]
+            state.nfe += 1  # the refill prefill forward
+            return state
 
     # -- implementation --------------------------------------------------------
 
@@ -630,7 +649,7 @@ class SJDEngine:
             prompt_len=prompt_len,
             prompt_rows=P,
             accept_hist=torch.zeros((W + 1,), dtype=torch.int32, device=dev),
-            flags=torch.zeros((2,), dtype=torch.int32, device=dev),
+            flags=torch.zeros((3,), dtype=torch.int32, device=dev),
         )
         if kv_buf_rows is not None:
             return fresh
@@ -681,21 +700,31 @@ class SJDEngine:
     def _run(self, params, st: EngineState, cap: int) -> None:
         """Decode steps while a slot is live and the NFE is under ``cap``
         (the JAX while_loop's condition, checked on the host); on the AR
-        fast path the same read also picks each step's width."""
+        fast path the same read also picks each step's width, and it counts
+        the slot-steps of finished slots."""
         self._check_own(st)
         graph = self.cuda_graph and st.tokens.is_cuda
         W = self.config.window
+        B = st.tokens.shape[0]
         fast = self.ar_fast_path and W > 1
+        traced = tracing.ON  # read once a call: it changes between calls
         self._write_flags(st)  # a prefill or a refill changed the slots
         while st.nfe < cap:
-            done, multi = st.flags.tolist()
+            t = tracing.now() if traced else None
+            done, multi, n_finished = st.flags.tolist()
+            if t is not None:
+                t = tracing.lap("engine.step.wait", t)
             if done:
                 break
+            st.slot_steps += B
+            st.finished_slot_steps += n_finished
             w = 1 if fast and not multi else W
             if graph:
-                self._graph_step(params, st, w)
+                self._graph_step(params, st, w, t)
             else:
                 self._step(params, st, w)
+                if t is not None:
+                    tracing.lap("engine.step.eager", t)
                 self.stats.eager_steps += 1
                 _add(self.stats.eager_by_width, {w: 1})
 
@@ -714,10 +743,11 @@ class SJDEngine:
             self._stream = torch.cuda.Stream(device=self.device)
         return self._stream
 
-    def _graph_step(self, params, st: EngineState, w: int) -> None:
+    def _graph_step(self, params, st: EngineState, w: int, t: Optional[int] = None) -> None:
         """One decode step of width ``w`` on CUDA: the first step of each
         width on a new state eagerly (the warm-up), else a replay of that
-        width's graph (captured first if needed)."""
+        width's graph (captured first if needed). ``t``: where tracing is
+        on, the step's phases are recorded from this ``tracing.now()`` on."""
         entry = self._graphs.get(w)
         if entry is None or entry.params is not params:
             if w not in self._warm:
@@ -726,16 +756,27 @@ class SJDEngine:
                 with torch.cuda.stream(side):
                     self._step(params, st, w)
                 main.wait_stream(side)
+                if t is not None:
+                    tracing.lap("engine.step.eager", t)
                 self._warm.add(w)
                 compile_watch.add(warmup_steps=1)
                 self.stats.eager_steps += 1
                 _add(self.stats.eager_by_width, {w: 1})
                 return
             entry = self._capture(params, st, w)
-        for buf, new in zip(entry.draws, self._draws(st)):
+            if t is not None:
+                t = tracing.lap("engine.capture", t)
+        draws = self._draws(st)
+        if t is not None:
+            t = tracing.lap("engine.step.draws", t)
+        for buf, new in zip(entry.draws, draws):
             if buf is not None:
                 buf.copy_(new)
+        if t is not None:
+            t = tracing.lap("engine.step.copy", t)
         entry.graph.replay()
+        if t is not None:
+            tracing.lap("engine.step.replay", t)
         st.nfe += 1
         self.stats.replays += 1
         _add(self.stats.replays_by_width, {w: 1})
@@ -778,10 +819,12 @@ class SJDEngine:
                 & (real_len < st.prompt_len + cfg.interval_r))
 
     def _write_flags(self, st: EngineState) -> None:
-        """``st.flags`` from the state as it is: every slot finished, and a
-        live slot inside the interval (the next step's width)."""
+        """``st.flags`` from the state as it is: every slot finished, a live
+        slot inside the interval (the next step's width), and the finished
+        slots."""
+        n_finished = st.finished.sum(dtype=torch.int32)
         any_multi = torch.any(self._in_interval(st) & ~st.finished)
-        st.flags.copy_(torch.stack([st.finished.all(), any_multi]))
+        st.flags.copy_(torch.stack([n_finished == st.finished.shape[0], any_multi, n_finished]))
 
     def _step_into(self, params, st: EngineState, draws: StepDraws,
                    w: Optional[int] = None) -> None:

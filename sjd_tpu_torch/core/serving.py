@@ -14,6 +14,11 @@ the same graph replays on.
 drive thread admits requests at chunk boundaries and resolves each
 request's ``PendingResult``. Only the drive thread touches the device.
 Requests are token ids or, with ``embed_dim`` (LlamaGen), embedding rows.
+While ``utils/tracing`` is on, the drive thread records its phases as spans
+(``serving.harvest``, ``serving.admit``, ``serving.rows``), each request's
+``request.queued`` (submit to admission) and ``request.served`` (admission
+to resolve) under the request's index, and samples its counters at each
+chunk boundary.
 
 Data-parallel slots (``row_sharding``, both batchers): the value is a
 ``parallel.make_mesh`` mesh (its 'data' axis) or a data-axis
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import statistics
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -39,7 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..utils.logging import MetricLogger
+from ..utils import tracing
 from .engine import seeded_generator, slot_generators
 
 _log = logging.getLogger("sjd_tpu_torch.serving")
@@ -56,6 +62,15 @@ def seed_generators(seeds: Sequence[int], device) -> List[torch.Generator]:
     """Per-request seeds -> one generator per slot (sjd_tpu's seed_keys): a
     request's trajectory is then a function of its prompt and seed alone."""
     return [seeded_generator(np.random.SeedSequence(int(s)), device) for s in seeds]
+
+
+def latency_summary(latencies: Sequence[float]) -> dict:
+    """Median and mean of the latencies, and their p90 once at least 10 lie
+    beyond it (100 or more); None where there are too few."""
+    lat = list(latencies)
+    return {"latency_s_median": statistics.median(lat) if lat else None,
+            "latency_s_p90": statistics.quantiles(lat, n=10)[-1] if len(lat) >= 100 else None,
+            "latency_s_mean": statistics.fmean(lat) if lat else None}
 
 
 class _DataAxis:
@@ -292,6 +307,7 @@ class PendingResult:
     def __init__(self, index: int):
         self.index = index
         self.submitted_at = time.perf_counter()
+        self.admitted_ns: Optional[int] = None  # tracing.now() when a slot took it
         self._event = threading.Event()
         self._result: Optional[CompletedGeneration] = None
         self._error: Optional[BaseException] = None
@@ -386,10 +402,13 @@ class StreamingBatcher:
         self._completed = 0
         self._in_flight = 0
         self._tokens_out = 0
+        self._tokens_in_flight = 0  # committed by the occupants at the last boundary
+        self._slot_steps = 0
+        self._finished_slot_steps = 0
         self._batches = 0  # fresh batches (generate)
         self._refills = 0
         self._chunks = 0  # generate and resume calls
-        self._metrics = MetricLogger()  # latency_s, gen_tokens per completion
+        self._latencies: List[float] = []  # seconds from submit, every completion
         self._closed = False
         self._thread = threading.Thread(target=self._drive, name="StreamingBatcher",
                                         daemon=True)
@@ -397,17 +416,26 @@ class StreamingBatcher:
 
     def stats(self) -> dict:
         """A snapshot of the serving counters: requests submitted, completed,
-        in flight and pending, generated tokens, fresh batches, refills and
-        chunks (generate and resume calls), and each completion's latency
-        from submit (median, mean)."""
+        in flight and pending; ``tokens_generated``, the tokens of completed
+        requests, and ``tokens_committed``, those plus what the requests in
+        flight had committed at the last chunk boundary; ``slot_steps``,
+        decode steps times slots (this rank's, over a data axis), and
+        ``finished_slot_steps``, those of slots whose request had finished
+        and waited for the chunk's end; fresh batches, refills and chunks
+        (generate and resume calls); and the latency from submit over every
+        completion since the start (median and mean, None before the first;
+        p90 once at least 10 completions lie beyond it, else None)."""
         with self._lock:
-            lat = self._metrics.meters["latency_s"]
-            return {"submitted": self._count, "completed": self._completed,
-                    "in_flight": self._in_flight, "pending": len(self._pending),
-                    "tokens_generated": self._tokens_out, "batches": self._batches,
-                    "refills": self._refills,
-                    "chunks": self._chunks, "latency_s_median": lat.median,
-                    "latency_s_mean": lat.global_avg}
+            out = {"submitted": self._count, "completed": self._completed,
+                   "in_flight": self._in_flight, "pending": len(self._pending),
+                   "tokens_generated": self._tokens_out,
+                   "tokens_committed": self._tokens_out + self._tokens_in_flight,
+                   "slot_steps": self._slot_steps,
+                   "finished_slot_steps": self._finished_slot_steps,
+                   "batches": self._batches, "refills": self._refills,
+                   "chunks": self._chunks}
+            lat = list(self._latencies)
+        return {**out, **latency_summary(lat)}  # sorted outside the drive thread's lock
 
     # -- client side -----------------------------------------------------
 
@@ -539,6 +567,7 @@ class StreamingBatcher:
         occupants: List[Optional[PendingResult]] = [None] * B
         fill: Optional[tuple] = None  # the prompt idle slots carry
         state = None
+        counted = (0, 0)  # the state's (slot_steps, finished_slot_steps) counted so far
 
         def take(n):
             out = []
@@ -549,6 +578,31 @@ class StreamingBatcher:
         def set_in_flight():
             with self._lock:
                 self._in_flight = sum(o is not None for o in occupants)
+
+        def occupy(b, r):
+            """Slot ``b`` takes request ``r`` (its queue span ends here)."""
+            h = occupants[b] = r[0]
+            # stamped like submitted_at, so that a request admitted before the
+            # recorder went on still has its service span when it resolves
+            h.admitted_ns = tracing.now()
+            if tracing.ON:
+                tracing.record("request.queued", int(h.submitted_at * 1e9), h.admitted_ns,
+                               request=h.index)
+
+        def rows_of(reqs):
+            with tracing.span("serving.rows"):
+                rows = self._rows(reqs, fill)
+                return rows, seed_generators(rows["seeds"], dev)
+
+        def count_steps(state, since):
+            """Add the state's decode slot-steps since ``since``; returns the
+            state's counts."""
+            now = (state.slot_steps, state.finished_slot_steps)
+            with self._lock:
+                self._chunks += 1
+                self._slot_steps += now[0] - since[0]
+                self._finished_slot_steps += now[1] - since[1]
+            return now
 
         def admit() -> tuple:
             """(the requests admitted into the free slots, stop): decided by
@@ -576,8 +630,10 @@ class StreamingBatcher:
         while True:
             try:
                 if state is not None:
-                    self._harvest(state, occupants)
-                new, stop = admit()
+                    with tracing.span("serving.harvest"):
+                        self._harvest(state, occupants)
+                with tracing.span("serving.admit"):
+                    new, stop = admit()
                 if stop:
                     with self._lock:
                         self._closed = True
@@ -587,15 +643,14 @@ class StreamingBatcher:
                         continue
                     reqs = dict(enumerate(new))
                     for b, r in reqs.items():
-                        occupants[b] = r[0]
+                        occupy(b, r)
                     fill = new[0]
-                    rows = self._rows(reqs, fill)
-                    _, state = eng.generate(
-                        self.params, seed_generators(rows["seeds"], dev),
-                        max_steps=self.chunk_steps, return_state=True, **rows["kw"])
+                    rows, gens = rows_of(reqs)
+                    _, state = eng.generate(self.params, gens, max_steps=self.chunk_steps,
+                                            return_state=True, **rows["kw"])
+                    counted = count_steps(state, (0, 0))
                     with self._lock:
                         self._batches += 1
-                        self._chunks += 1
                     set_in_flight()
                     continue
 
@@ -603,15 +658,14 @@ class StreamingBatcher:
                     reqs = {}
                     for r in new:
                         b = occupants.index(None)
-                        occupants[b] = r[0]
+                        occupy(b, r)
                         reqs[b] = r
                     refill_mask = np.zeros((B,), bool)
                     refill_mask[list(reqs)] = True
                     if refill_mask[sl].any():
-                        rows = self._rows(reqs, fill)
+                        rows, gens = rows_of(reqs)
                         state = eng.refill(self.params, state, refill_mask=refill_mask[sl],
-                                           rng=seed_generators(rows["seeds"], dev),
-                                           **rows["kw"])
+                                           rng=gens, **rows["kw"])
                     else:  # another rank's refill: one forward of the batch's NFE
                         state.nfe += 1
                     with self._lock:
@@ -622,8 +676,7 @@ class StreamingBatcher:
                     continue
                 _, state = eng.resume(self.params, state, max_steps=self.chunk_steps,
                                       return_state=True)
-                with self._lock:
-                    self._chunks += 1
+                counted = count_steps(state, counted)
             except Exception as e:  # the serving loop must outlive one failed batch
                 if axis.size > 1:
                     raise  # the data ranks cannot go on apart: _drive fails everything
@@ -634,6 +687,8 @@ class StreamingBatcher:
                     if occupants[b] is not None:
                         occupants[b]._fail(e)
                         occupants[b] = None
+                with self._lock:
+                    self._tokens_in_flight = 0
                 set_in_flight()
                 state = None
 
@@ -643,18 +698,28 @@ class StreamingBatcher:
         longest rank's)."""
         finished, lengths, state.nfe = self.rows.boundary(state)
         hits = [b for b, h in enumerate(occupants) if h is not None and finished[b]]
-        if not hits:
-            return
-        rows = self.rows.token_rows(state, hits)
+        live = sum(int(lengths[b]) - state.prompt_rows for b, h in enumerate(occupants)
+                   if h is not None and not finished[b])
+        rows = self.rows.token_rows(state, hits) if hits else {}
+        done = []
         for b in hits:
             h = occupants[b]
             n = int(lengths[b])
-            done = CompletedGeneration(prompt_index=h.index, tokens=rows[b][:n],
-                                       gen_count=n - state.prompt_rows)
+            done.append((h, CompletedGeneration(prompt_index=h.index, tokens=rows[b][:n],
+                                                gen_count=n - state.prompt_rows)))
             occupants[b] = None
-            with self._lock:
-                self._completed += 1
-                self._tokens_out += done.gen_count
-                self._metrics.update(latency_s=time.perf_counter() - h.submitted_at,
-                                     gen_tokens=done.gen_count)
-            h._resolve(done)
+        now = time.perf_counter()
+        with self._lock:  # one update: stats() sees no token twice or not at all
+            self._tokens_in_flight = live
+            self._completed += len(done)
+            self._tokens_out += sum(c.gen_count for _, c in done)
+            self._latencies.extend(now - h.submitted_at for h, _ in done)
+            counts = (self._slot_steps, self._finished_slot_steps,
+                      self._tokens_out + self._tokens_in_flight)
+        for h, c in done:
+            if tracing.ON:
+                tracing.record("request.served", h.admitted_ns, tracing.now(), request=h.index)
+            h._resolve(c)
+        if tracing.ON:
+            for name, v in zip(("slot_steps", "finished_slot_steps", "tokens_committed"), counts):
+                tracing.sample(name, v)

@@ -36,12 +36,6 @@ _ACC = {
 }
 
 
-def install() -> None:
-    """Nothing to register: the build and the engines add to the counters
-    themselves. Kept so that callers of the JAX module's API run as they
-    are."""
-
-
 def add(**increments) -> None:
     """Add to the named counters (the build and the engines call this)."""
     with _LOCK:

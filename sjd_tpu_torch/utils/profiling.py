@@ -1,12 +1,12 @@
-"""Timing and tracing helpers (sjd_tpu/utils/profiling.py):
+"""Timing helpers (sjd_tpu/utils/profiling.py):
 
-  * :func:`trace` - ``torch.profiler`` around a block (CPU and, when the
-    card is there, CUDA activity), exported as a Chrome trace;
   * :class:`GenerationStats` - NFE, tokens, tokens per forward and the
     acceptance histogram of a ``GenerateResult``, with the wall time;
-  * :func:`time_block`, :func:`timed_generate` - host wall time of work
-    that ends in ``torch.cuda.synchronize()`` when it ran on the card;
+  * :func:`time_block` - host wall time of work that ends in
+    ``torch.cuda.synchronize()`` when it ran on the card;
   * :func:`host_peak_rss_bytes` - the process's peak resident set.
+
+Spans inside the serving and decode paths: ``utils/tracing.py``.
 """
 
 from __future__ import annotations
@@ -22,21 +22,6 @@ import torch
 def _sync(device=None) -> None:
     if torch.cuda.is_available() and (device is None or torch.device(device).type == "cuda"):
         torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def trace(path: str):
-    """Profile the block with ``torch.profiler`` and write a Chrome trace to
-    ``path``; yields the profiler (``key_averages()`` for sums by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-        _sync()
-    prof.export_chrome_trace(path)
 
 
 @contextlib.contextmanager
@@ -74,15 +59,6 @@ class GenerationStats:
         return (f"Time elapsed inner: {self.wall_s:.2f}s | gen loop num (NFE): "
                 f"{self.nfe} | tokens length: {self.tokens} | "
                 f"accept {self.accept_rate:.2f} tok/fwd")
-
-
-def timed_generate(engine, params, rng, *args, **kwargs):
-    """``engine.generate`` with its wall time (the card synchronised):
-    (result, GenerationStats)."""
-    t0 = time.perf_counter()
-    res = engine.generate(params, rng, *args, **kwargs)
-    _sync(engine.device)
-    return res, GenerationStats.from_result(res, time.perf_counter() - t0)
 
 
 def host_peak_rss_bytes() -> Optional[int]:

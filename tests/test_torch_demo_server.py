@@ -215,7 +215,6 @@ def test_compile_watch_snapshot_and_delta():
     d = compile_watch.delta(since)
     assert (d["builds"], d["build_s"], d["captures"], d["library_hits"]) == (2, 1.25, 1, 0)
     assert compile_watch.delta(compile_watch.snapshot())["builds"] == 0
-    compile_watch.install()  # nothing to register
 
 
 def test_compile_watch_counts_builds_and_hits(tmp_path, monkeypatch):

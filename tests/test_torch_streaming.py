@@ -259,27 +259,23 @@ def test_drive_thread_failure_fails_queued_requests(params):
     sb.close()
 
 
-def test_profiling_and_logging_helpers(params, tmp_path):
-    """GenerationStats from a result, timed_generate, time_block and trace
-    (a Chrome trace file), SmoothedValue and MetricLogger, as the JAX
-    package's helpers report them."""
+def test_profiling_and_logging_helpers(params):
+    """GenerationStats from a result, time_block, SmoothedValue and
+    MetricLogger, as the JAX package's helpers report them."""
     from sjd_tpu.utils.logging import SmoothedValue as JaxSmoothedValue
     from sjd_tpu_torch.utils.logging import MetricLogger, SmoothedValue, set_logger
-    from sjd_tpu_torch.utils.profiling import (
-        GenerationStats, host_peak_rss_bytes, time_block, timed_generate, trace)
+    from sjd_tpu_torch.utils.profiling import GenerationStats, host_peak_rss_bytes, time_block
 
     eng = engine()
-    with trace(str(tmp_path / "trace.json")) as prof:
-        res, stats = timed_generate(eng, params, 3, torch.tensor([grid_prompt(53)]))
-    assert (tmp_path / "trace.json").stat().st_size > 0 and len(prof.key_averages()) > 0
+    held = {}
+    with time_block("", held):
+        res = eng.generate(params, 3, torch.tensor([grid_prompt(53)]))
+    stats = GenerationStats.from_result(res, held["elapsed"])
     assert stats.nfe == res.nfe and stats.tokens == int(res.gen_count.max())
     assert stats.accept_rate == stats.tokens / stats.nfe and stats.wall_s > 0
     assert sum(stats.accept_hist) == res.nfe - 1  # one bin per decode step
     assert "NFE" in str(GenerationStats.from_result(res, 1.0))
-    held = {}
-    with time_block("", held):
-        pass
-    assert held["elapsed"] >= 0 and host_peak_rss_bytes() > 0
+    assert host_peak_rss_bytes() > 0
     got, want = SmoothedValue(window_size=3), JaxSmoothedValue(window_size=3)
     for v in (4.0, 1.0, 3.0, 8.0):
         got.update(v)
