@@ -13,63 +13,96 @@
 // q is int8 [N, K] or packed int4 [N, K/2] (split-half nibbles: byte column
 // j holds column j in its low nibble and column j + K/2 in its high one).
 //
-// What bounds it on the H100. At the decode path's M = 32 the weights are
-// the bytes that must come from HBM: a 4096 x 4096 projection is 8.4 MB in
-// int4, 2.5 us at 3.35 TB/s, against 1.07 GFLOP, 1.1 us at the bf16 tensor
-// cores' dense peak. What the card spends beyond that goes to the bytes the
-// kernel moves besides: every block stages the activation columns of its
-// chunks beside its weight rows, so every N tile reads the whole activation
-// again from L2 (at 64 weight rows per block, twice the int4 weight bytes),
-// and a K range split over several blocks writes and reads partial sums.
+// K1 (quant_linear_kernel_wg). What bounds it: at the decode windows' M
+// (96 to 160 rows) the operations. A 4096 x 4096 int4 projection at M = 160
+// is 5.4 GFLOP, 5.4 us at the bf16 tensor cores' 989 TFLOP/s, against 8.4 MB
+// of packed weight, 2.5 us at 3.35 TB/s. Only wgmma reaches that rate, and
+// only if the weights are widened once per launch, not once per slice of M.
 // What the design does about it:
 //
-// - K1's block holds kBN = 128 weight rows (8 warps of 16): each staged
-//   activation chunk feeds all of them, half the activation bytes per
-//   weight byte of a 64-row block. K2's activations are int8, half K1's
-//   bytes, and its block keeps 64 rows (4 warps of 16, two chunks a stage):
-//   no 128-row layout ran faster for it. A block takes kBM = 32 activation
-//   rows; M above 32 takes more blocks along M. A chunk is 64 bytes of each
-//   weight row; one 16-byte read of a row feeds 16 columns at k and, for
-//   int4, 16 at k + K/2, so the activation tile holds both.
+// - The block holds 128 weight rows, two consumer warpgroups of 64 (wgmma's
+//   m), against kN activation rows: M rounded up to 16 (M <= 16) or 32, at
+//   most 256 (wgmma's largest n); above 256, M is cut into equal tiles of at
+//   most 256 rows, one block row each. So at M <= 256 each weight byte is
+//   read and widened once per launch, and every product runs on
+//   wgmma.m64n{kN}k16 with A from registers and f32 sums in registers.
+// - A, the weights: each thread widens its fragment from the staged bytes
+//   into registers, as 16-bit reads of two codes (no bank conflicts under
+//   the tile's 64-byte swizzle); int4 nibble v becomes the bf16 pattern of
+//   136 + v, minus 136, int8 goes through an exact f32. Both exact.
+// - B, the activations: K-major, 128-byte swizzle, one swizzle atom of 64
+//   columns per k16 group of four steps. int4 stages the first half's 64
+//   columns j and the second half's K/2 + j of a 64-byte chunk as two atoms,
+//   so that a thread's two bytes feed one step of each half (low nibbles,
+//   high nibbles).
+// - Loads by TMA: thread 0 asks for each stage's tiles (activations from a
+//   [M][2][K/2] or [M][K] tensor map, weights from [N][Kb]), which land
+//   swizzled and count their bytes on the stage's mbarrier; out-of-range rows
+//   and columns read 0. The ring keeps kStages chunks (up to 8, what shared
+//   memory holds at kN: 3 at 256 rows): the one multiplied, the one whose
+//   last wgmma drains, the rest in flight. (cp.async by every thread, 3072
+//   copies of 16 bytes a chunk at 160 rows, ran the kernel at half this
+//   speed on the H100.)
+// - The wgmmas of a chunk are issued one k16 step after the other, each
+//   waiting only for the one before (which frees its A registers); the first
+//   scales the sums by 0, so no instruction besides wgmma writes them.
+// - The K order inside a row is fixed (chunk by chunk, within a chunk k16
+//   steps in order, int4 alternating halves) and the split sum adds in
+//   split order, so a row's output is bit-identical whatever M is.
+//
+// K2 (quant_linear_kernel). At the decode path's M = 32 the weights are the
+// bytes that must come from HBM; what the card spends beyond them goes to the
+// bytes the kernel moves besides: every block stages the activation columns
+// of its chunks beside its weight rows, and a K range split over several
+// blocks writes and reads partial sums. What the design does about it:
+//
+// - The block keeps 64 weight rows (4 warps of 16, two chunks a stage) and
+//   kBM = 32 activation rows; M above 32 takes more blocks along M. A chunk
+//   is 64 bytes of each weight row; one 16-byte read of a row feeds 16
+//   columns at k and, for int4, 16 at k + K/2, so the activation tile holds
+//   both.
 // - A cp.async ring, kStages stages of kWarpsK chunks, for the weight and
 //   activation tiles, so that the next chunks' bytes are in flight while
 //   one is multiplied.
-// - Tensor cores through mma.sync: K1 on m16n8k16 bf16 with f32 sums (the
-//   int -> bf16 convert is exact: an int4 nibble becomes 136 + v by a bit
-//   pattern, minus 136; an int8 code goes through an exact f32); K2 on
-//   m16n8k32 s8 with s32 sums, exact, int4 nibbles widened to int8 as
-//   16 * v (one mask), the sum shifted right by 4 at the end.
-// - One launch. The K range is split over gridDim.z; the split count
-//   depends on N, K, the bits and the kernel (sjd_quant_linear_splits),
-//   never on M: at most one wave of resident blocks at one M tile (kWaveBlocks), at
-//   least a full ring of chunks per split, and at most kMaxSplits (the
-//   partials of more splits cost more than their blocks add). With more
-//   than one split each block writes its f32 (K1) or int32 (K2) partial to
-//   a scratch the caller allocates, then counts its arrival on an int32
-//   counter of its (N tile, M tile) in a buffer the caller keeps zeroed.
-//   The block that arrives last adds the partials in split order 0 .. g-1,
-//   applies the scales, writes y and stores 0 back into the counter, so the
-//   next launch, and every replay of a graph that holds this one, finds it
-//   zero. A row of y is therefore bit-identical whatever M is (the
-//   batcher's promise: a request's tokens do not depend on the batch
-//   width). The kernel assumes one stream at a time: two launches in
-//   flight together on one counter buffer would mix their arrivals.
-// - The k order inside an mma is permuted alike in both operands so that
-//   each thread reads consecutive bytes; shared-memory rows are padded so
-//   that the 16-byte fragment reads of a quarter warp hit distinct banks.
-//   The kernel declares no static shared memory: a 16-byte flag beside the
-//   dynamic ring made the same loop 15-40% slower on the H100, so the
-//   arrival flag lives in the idle ring.
+// - mma.sync m16n8k32 s8 with s32 sums, exact, int4 nibbles widened to int8
+//   as 16 * v (one mask), the sum shifted right by 4 at the end. The k order
+//   inside an mma is permuted alike in both operands so that each thread
+//   reads consecutive bytes; shared-memory rows are padded so that the
+//   16-byte fragment reads of a quarter warp hit distinct banks. The kernel
+//   declares no static shared memory: a 16-byte flag beside the dynamic ring
+//   made the same loop 15-40% slower on the H100, so the arrival flag lives
+//   in the idle ring.
+//
+// Both: one launch per product. The K range is split over gridDim.z; the
+// split count depends on N, K, the bits and the kernel (sjd_quant_linear_splits),
+// never on M: at most one wave of resident blocks at one 32-row M tile
+// (kWaveBlocks), at least a full ring of chunks per split, and at most
+// kMaxSplits (the partials of more splits cost more than their blocks add).
+// With more than one split each block writes its f32 (K1) or int32 (K2)
+// partial to a scratch the caller allocates (K1 in its own fragment order,
+// 16 bytes a thread), then counts its arrival on an int32 counter of its
+// (N tile, M tile) in a buffer the caller keeps zeroed. The block that
+// arrives last adds the partials in split order 0 .. g-1 (K1 its own from its
+// registers), applies the scales, writes y and stores 0 back into the
+// counter, so the next launch, and every replay of a graph that holds this
+// one, finds it zero. A row of y is therefore bit-identical whatever M is
+// (the batcher's promise: a request's tokens do not depend on the batch
+// width). The kernels assume one stream at a time: two launches in flight
+// together on one counter buffer would mix their arrivals.
 //
 // C interface (ctypes): sjd_quant_linear(...) returns cudaGetLastError();
-// sjd_quant_linear_splits(N, K, bits, a8) returns the split count, which
-// sizes the caller's scratch; sjd_quant_linear_tile(dim, a8) the block's
-// weight rows (dim 0) and activation rows (dim 1), which size its
-// counters; sjd_quant_linear_resident(bits, a8) the blocks the current
-// device holds at once. The kernel launches on the given stream and
-// allocates nothing.
+// sjd_quant_linear_splits(N, K, bits, a8) returns the split count;
+// sjd_quant_linear_scratch(M, N, K, bits, a8) the elements of the caller's
+// scratch; sjd_quant_linear_tile(dim, a8) the block's weight rows (dim 0) and
+// 32 activation rows (dim 1), which size its counters;
+// sjd_quant_linear_resident(bits, a8) the blocks the current device holds at
+// once. The kernels launch on the given stream and allocate nothing; K1's
+// tensor maps are encoded on the host at each launch (cuTensorMapEncodeTiled
+// through the runtime's driver entry point) and passed as kernel parameters,
+// so a captured graph replays them.
 
 #include <atomic>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,11 +113,11 @@ namespace {
 // along K (warp group kk takes chunk kk of a stage); K1 (A16) and K2 (A8)
 // each have their own layout
 constexpr int kWarpRows = 16;  // weight rows per warp: kWarpRows / 8 n8 tiles
-constexpr int kWarpsNA16 = 8;  // K1: 8 x 16 = 128 weight rows
+constexpr int kWarpsNA16 = 8;  // K1: 8 x 16 = 128 weight rows, two warpgroups, a chunk a stage
 constexpr int kWarpsKA16 = 1;
 constexpr int kWarpsNA8 = 4;   // K2: 4 x 16 = 64 weight rows, 2 chunks a stage
 constexpr int kWarpsKA8 = 2;
-constexpr int kStages = 4;     // stages of kWarpsK chunks in the cp.async ring
+constexpr int kStages = 4;     // K2's ring: stages of kWarpsK chunks (and a split's least)
 constexpr int kBlocksPerSM = 2;  // blocks resident on each SM (registers capped to fit)
 constexpr int kSMs = 132;        // the H100 SXM's
 constexpr int kMaxSplits = 4;    // more splits write more partials than they save
@@ -145,15 +178,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// c += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // c += a (16x32, row) . b (32x8, col), s8 in, s32 accumulate
 __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -161,34 +185,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the low nibbles (hi = false) or high nibbles of the bytes of w as bf16x2
-// pairs (bytes 0, 1) and (bytes 2, 3), exactly: nibble v (two's complement)
-// becomes the bf16 bit pattern of 136 + v, then 136 is subtracted
-__device__ __forceinline__ void nibbles_to_bf16(uint32_t w, bool hi, uint32_t& p01,
-                                                uint32_t& p23) {
-  const uint32_t u = hi ? (w >> 4) : w;
-  const uint32_t a = (__byte_perm(u, 0, 0x4140) & 0x000F000Fu) ^ 0x43084308u;
-  const uint32_t b = (__byte_perm(u, 0, 0x4342) & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
-  const __nv_bfloat162 ra = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a), off);
-  const __nv_bfloat162 rb = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b), off);
-  p01 = *reinterpret_cast<const uint32_t*>(&ra);
-  p23 = *reinterpret_cast<const uint32_t*>(&rb);
-}
-
-// four int8 codes -> bf16x2 pairs (bytes 0, 1) and (bytes 2, 3), exactly:
-// byte b becomes the f32 2^23 + (b ^ 0x80), minus 2^23 + 128, whose upper
-// half is the bf16 value
-__device__ __forceinline__ void int8_to_bf16(uint32_t w, uint32_t& p01, uint32_t& p23) {
-  const uint32_t u = w ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-  p01 = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  p23 = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 template <bool kA8>
@@ -312,76 +308,38 @@ __global__ void __launch_bounds__(Warps<kA8>::kThreads, kBlocksPerSM) quant_line
 #pragma unroll
     for (int half = 0; half < Lay::kHalves; ++half) {
       const uint8_t* xh = xst + half * Lay::kXHalfBytes;
-      if constexpr (!kA8) {
-        // k16 steps 2h + j: the thread's k slots (2t, 2t+1, 2t+8, 2t+9) hold
-        // columns 16t + 4 step + (0, 1, 2, 3) of the chunk, in both operands
+      // k32 steps 0, 1: the thread's k slots (4t..4t+3, 16+4t..16+4t+3)
+      // hold columns 16t + 8 step + (0..3, 4..7) of the chunk
+      uint4 xa[2][2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint4 xa[2][2];  // [m16 tile][row gid, gid + 8]: 8 columns from 16t + 8h
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+        for (int rr = 0; rr < 2; ++rr)
+          xa[mt][rr] = *reinterpret_cast<const uint4*>(
+              xh + (16 * mt + 8 * rr + gid) * Lay::kXStride + 16 * tig);
 #pragma unroll
-            for (int rr = 0; rr < 2; ++rr)
-              xa[mt][rr] = *reinterpret_cast<const uint4*>(
-                  xh + (16 * mt + 8 * rr + gid) * Lay::kXStride + 32 * tig + 16 * h);
+      for (int step = 0; step < 2; ++step) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int step = 2 * h + j;
-#pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              const uint32_t word = step == 0 ? wb[nt].x : step == 1 ? wb[nt].y
-                                  : step == 2 ? wb[nt].z : wb[nt].w;
-              uint32_t b0, b1;
-              if constexpr (kBits == 4) {
-                nibbles_to_bf16(word, half == 1, b0, b1);
-              } else {
-                int8_to_bf16(word, b0, b1);
-              }
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                const uint4& lo = xa[mt][0];
-                const uint4& hi = xa[mt][1];
-                const uint32_t a[4] = {j ? lo.z : lo.x, j ? hi.z : hi.x, j ? lo.w : lo.y,
-                                       j ? hi.w : hi.y};
-                mma_bf16(acc[mt][nt], a, b0, b1);
-              }
+        for (int nt = 0; nt < kNT; ++nt) {
+          uint32_t b0 = step ? wb[nt].z : wb[nt].x;
+          uint32_t b1 = step ? wb[nt].w : wb[nt].y;
+          if constexpr (kBits == 4) {
+            // nibble v as the int8 16 v: the sum is shifted back at the end
+            if (half == 0) {
+              b0 = (b0 << 4) & 0xF0F0F0F0u;
+              b1 = (b1 << 4) & 0xF0F0F0F0u;
+            } else {
+              b0 &= 0xF0F0F0F0u;
+              b1 &= 0xF0F0F0F0u;
             }
           }
-        }
-      } else {
-        // k32 steps 0, 1: the thread's k slots (4t..4t+3, 16+4t..16+4t+3)
-        // hold columns 16t + 8 step + (0..3, 4..7) of the chunk
-        uint4 xa[2][2];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr)
-            xa[mt][rr] = *reinterpret_cast<const uint4*>(
-                xh + (16 * mt + 8 * rr + gid) * Lay::kXStride + 16 * tig);
-#pragma unroll
-        for (int step = 0; step < 2; ++step) {
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            uint32_t b0 = step ? wb[nt].z : wb[nt].x;
-            uint32_t b1 = step ? wb[nt].w : wb[nt].y;
-            if constexpr (kBits == 4) {
-              // nibble v as the int8 16 v: the sum is shifted back at the end
-              if (half == 0) {
-                b0 = (b0 << 4) & 0xF0F0F0F0u;
-                b1 = (b1 << 4) & 0xF0F0F0F0u;
-              } else {
-                b0 &= 0xF0F0F0F0u;
-                b1 &= 0xF0F0F0F0u;
-              }
-            }
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              const uint4& lo = xa[mt][0];
-              const uint4& hi = xa[mt][1];
-              const uint32_t a[4] = {step ? lo.z : lo.x, step ? hi.z : hi.x,
-                                     step ? lo.w : lo.y, step ? hi.w : hi.y};
-              mma_s8(acc[mt][nt], a, b0, b1);
-            }
+          for (int mt = 0; mt < 2; ++mt) {
+            const uint4& lo = xa[mt][0];
+            const uint4& hi = xa[mt][1];
+            const uint32_t a[4] = {step ? lo.z : lo.x, step ? hi.z : hi.x,
+                                   step ? lo.w : lo.y, step ? hi.w : hi.y};
+            mma_s8(acc[mt][nt], a, b0, b1);
           }
         }
       }
@@ -486,6 +444,378 @@ __global__ void __launch_bounds__(Warps<kA8>::kThreads, kBlocksPerSM) quant_line
   if (tid == 0) *counter = 0;
 }
 
+// ---------------------------------------------------------------------------
+// K1: quant_linear_kernel_wg<kBits, kN>, the block's 128 weight rows against
+// kN activation rows on wgmma (the header says why and how).
+
+constexpr int kWgRows = 64;         // weight rows per consumer warpgroup: wgmma's m
+constexpr int kWgThreads = 2 * 128;  // two warpgroups: K1's 128 weight rows (Warps<false>)
+constexpr int kWgMaxN = 256;        // activation rows per block at most: wgmma's largest n
+constexpr int kWgMaxStages = 8;     // chunks in the ring at most
+constexpr int kSmemPerSM = 233472;  // the H100's 228 KB, the driver's 1 KB a block included
+constexpr int kSmemPerBlock = 232448;
+static_assert(kWgThreads / 128 * kWgRows == Warps<false>::kBN &&
+                  Warps<false>::kThreads == kWgThreads,
+              "K1's block: 8 warps of 16 weight rows, two warpgroups");
+
+template <int kBits, int kN>
+struct WgTile {
+  static constexpr int kAtoms = kBits == 4 ? 2 : 1;  // 128-byte activation rows per chunk
+  static constexpr int kSteps = 4 * kAtoms;          // k16 steps per chunk
+  static constexpr int kBlocks = kN <= 64 ? 2 : 1;   // blocks resident on each SM
+  static constexpr int kXBytes = kAtoms * kN * 128;  // a chunk's activation tile
+  static constexpr int kStageBytes = kXBytes + Warps<false>::kBN * kChunk;
+  static constexpr int kPerBlock = kSmemPerSM / kBlocks - 1024 < kSmemPerBlock
+                                       ? kSmemPerSM / kBlocks - 1024 : kSmemPerBlock;
+  static constexpr int kFit = (kPerBlock - 1024 - 8 * kWgMaxStages) / kStageBytes;
+  static constexpr int kStages = kFit < kWgMaxStages ? kFit : kWgMaxStages;
+  // the ring, 1 KB to align it to the swizzle's atoms, its mbarriers
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 8 * kWgMaxStages;
+  static_assert(kN % 16 == 0 && kN <= kWgMaxN, "wgmma's n: a multiple of 16, at most 256");
+  static_assert(kStages >= 3, "the ring holds the chunk multiplied, one draining, one landing");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// B's descriptor: K-major, 128-byte swizzle, activation rows 128 bytes
+// apart (8-row groups 1024), starting at shared address addr
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64 x n] += a (registers: 64 x 16 bf16, m16n8k16's A fragment per warp)
+// . b (shared: 16 x n bf16 by b_desc), f32 sums in registers
+template <int kN>
+struct Wgmma;
+#define QL_F8(i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define QL_UNPAREN(...) __VA_ARGS__
+#define QL_WGMMA(N, REGS, OUTS, AB, SCALE)                                                  \
+  template <>                                                                              \
+  struct Wgmma<N> {                                                                        \
+    static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,   \
+                                               int scale) {                                \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"                       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, " AB \
+                   ", p, 1, 1, 0;\n}\n"                                                     \
+                   : QL_UNPAREN OUTS                                                        \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale));     \
+    }                                                                                      \
+  };
+#define QL_R0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define QL_R1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define QL_R2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define QL_R3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define QL_R4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define QL_R5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define QL_R6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define QL_R7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define QL_R8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define QL_R9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define QL_R10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define QL_R11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define QL_R12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define QL_R13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define QL_R14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define QL_R15 "%120, %121, %122, %123, %124, %125, %126, %127"
+// the first 2g groups of 8 accumulators: their operand numbers, their operands
+#define QL_R_2 QL_R0 ", " QL_R1
+#define QL_F_2 QL_F8(0), QL_F8(8)
+#define QL_R_4 QL_R_2 ", " QL_R2 ", " QL_R3
+#define QL_F_4 QL_F_2, QL_F8(16), QL_F8(24)
+#define QL_R_6 QL_R_4 ", " QL_R4 ", " QL_R5
+#define QL_F_6 QL_F_4, QL_F8(32), QL_F8(40)
+#define QL_R_8 QL_R_6 ", " QL_R6 ", " QL_R7
+#define QL_F_8 QL_F_6, QL_F8(48), QL_F8(56)
+#define QL_R_10 QL_R_8 ", " QL_R8 ", " QL_R9
+#define QL_F_10 QL_F_8, QL_F8(64), QL_F8(72)
+#define QL_R_12 QL_R_10 ", " QL_R10 ", " QL_R11
+#define QL_F_12 QL_F_10, QL_F8(80), QL_F8(88)
+#define QL_R_14 QL_R_12 ", " QL_R12 ", " QL_R13
+#define QL_F_14 QL_F_12, QL_F8(96), QL_F8(104)
+#define QL_R_16 QL_R_14 ", " QL_R14 ", " QL_R15
+#define QL_F_16 QL_F_14, QL_F8(112), QL_F8(120)
+QL_WGMMA(16, QL_R0, (QL_F8(0)), "{%8, %9, %10, %11}, %12", "%13")
+QL_WGMMA(32, QL_R_2, (QL_F_2), "{%16, %17, %18, %19}, %20", "%21")
+QL_WGMMA(64, QL_R_4, (QL_F_4), "{%32, %33, %34, %35}, %36", "%37")
+QL_WGMMA(96, QL_R_6, (QL_F_6), "{%48, %49, %50, %51}, %52", "%53")
+QL_WGMMA(128, QL_R_8, (QL_F_8), "{%64, %65, %66, %67}, %68", "%69")
+QL_WGMMA(160, QL_R_10, (QL_F_10), "{%80, %81, %82, %83}, %84", "%85")
+QL_WGMMA(192, QL_R_12, (QL_F_12), "{%96, %97, %98, %99}, %100", "%101")
+QL_WGMMA(224, QL_R_14, (QL_F_14), "{%112, %113, %114, %115}, %116", "%117")
+QL_WGMMA(256, QL_R_16, (QL_F_16), "{%128, %129, %130, %131}, %132", "%133")
+#undef QL_WGMMA
+#undef QL_UNPAREN
+#undef QL_F8
+
+// two packed int4 bytes (byte 0: column j, byte 1: column j + 1) -> bf16x2
+// of their low nibbles (columns j, j + 1 of the first half of K) and of
+// their high nibbles (the second half), exactly: nibble v (two's
+// complement) becomes the bf16 bit pattern of 136 + v, then 136 is
+// subtracted
+__device__ __forceinline__ void nibble_pairs_to_bf16(uint32_t u, uint32_t& lo, uint32_t& hi) {
+  const uint32_t t = __byte_perm(u, 0, 0x4140);
+  const uint32_t a = (t & 0x000F000Fu) ^ 0x43084308u;
+  const uint32_t b = ((t >> 4) & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+  const __nv_bfloat162 ra = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a), off);
+  const __nv_bfloat162 rb = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b), off);
+  lo = *reinterpret_cast<const uint32_t*>(&ra);
+  hi = *reinterpret_cast<const uint32_t*>(&rb);
+}
+
+// two int8 codes (bytes 0, 1 of u) -> bf16x2, exactly: byte b becomes the
+// f32 2^23 + (b ^ 0x80), minus 2^23 + 128, whose upper half is the bf16
+// value
+__device__ __forceinline__ uint32_t int8_pair_to_bf16(uint32_t u) {
+  const uint32_t v = u ^ 0x8080u;
+  const float f0 = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7651)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// TMA and mbarrier: one thread asks for a whole tile, which lands in shared
+// memory (swizzled as its tensor map says) and counts its bytes on the
+// stage's mbarrier; the threads wait on the barrier's phase
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// waits for phase `parity` of the barrier to complete; traps after about
+// 2^31 cycles rather than hang the device
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 31)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+// the weight tile's 64-byte swizzle (TMA's and CUTLASS's Swizzle<2,4,3>):
+// the 16-byte unit (bits 4-5) XOR bits 7-8
+__device__ __forceinline__ int swz64(int off) { return off ^ (((off >> 7) & 3) << 4); }
+
+// grid: (ceil(N / 128), ceil(M / kN), splits); block: kWgThreads (two
+// consumer warpgroups, each 64 weight rows); dynamic shared memory:
+// WgTile<kBits, kN>::kSmem. tx: the activations' tensor map (int4: [M][2
+// halves][K/2], int8: [M][K], bf16, boxes of kN rows x 64 columns, 128-byte
+// swizzle); tw: the weight's ([N][Kb] bytes, boxes of 128 rows x 64 bytes,
+// 64-byte swizzle).
+template <int kBits, int kN>
+__global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_linear_kernel_wg(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+    const __nv_bfloat16* __restrict__ s,  // [N]
+    __nv_bfloat16* __restrict__ y,        // [M, N]
+    float* __restrict__ part,             // [tiles][splits][kN * 128] (several splits)
+    int* __restrict__ counters,           // [gridDim.y * gridDim.x], zero (several splits)
+    int M, int N, int n_chunks, int splits) {
+  using Lay = WgTile<kBits, kN>;
+  constexpr int kBN = Warps<false>::kBN;
+  constexpr int kStages = Lay::kStages, kSteps = Lay::kSteps;
+  constexpr int kTx = Warps<false>::kBN * kChunk + (kStageX ? Lay::kXBytes : 0);
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_addr(smem);
+  const uint32_t full = sbase + kStages * Lay::kStageBytes;  // a slot's barrier: its bytes in
+
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kN;
+  const int sp = blockIdx.z;
+  const int c_begin = sp * n_chunks / splits;
+  const int n_stages = (sp + 1) * n_chunks / splits - c_begin;  // one chunk a stage
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // the thread's weight rows in the block: A's rows gid and gid + 8 of its warp
+  const int r0 = kWgRows * (warp >> 2) + 16 * (warp & 3) + gid;
+
+  // stage i: chunk c_begin + i, kAtoms activation tiles (int4: the first
+  // half's 64 columns j, then the second half's, K/2 + j), then the
+  // weight tile of 128 rows x 64 bytes
+  const CUtensorMap* txp = &tx;
+  const CUtensorMap* twp = &tw;
+  auto issue = [&](int i) {
+    const uint32_t st = sbase + (i % kStages) * Lay::kStageBytes;
+    const uint32_t bar = full + 8 * (i % kStages);
+    const int c = c_begin + i;
+    mbar_expect(bar, kTx);
+    if constexpr (kStageX) {
+      if constexpr (kBits == 4) {
+        tma_load(st, txp, c * kChunk, 0, m0, bar);
+        tma_load(st + kN * 128, txp, c * kChunk, 1, m0, bar);
+      } else {
+        tma_load(st, txp, c * kChunk, m0, bar);
+      }
+    }
+    tma_load(st + Lay::kXBytes, twp, c * kChunk, n0, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(full + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < kStages - 2 && i < n_stages; ++i) issue(i);
+  }
+
+  // [n8 tile j][row gid, gid + 8][column 2 tig, 2 tig + 1]; the first wgmma
+  // scales them by 0 (zeroed registers would serialize the wgmmas: ptxas
+  // C7515)
+  float acc[kN / 2];
+
+  for (int it = 0; it < n_stages; ++it) {
+    const int slot = it % kStages;
+    mbar_wait(full + 8 * slot, (it / kStages) & 1);  // stage `it` landed
+    __syncthreads();  // and every wgmma of stage it-2 has retired: its slot is free
+    if (tid == 0 && it + kStages - 2 < n_stages) issue(it + kStages - 2);
+    const uint8_t* wst = smem + slot * Lay::kStageBytes + Lay::kXBytes;
+    const uint32_t xst = sbase + slot * Lay::kStageBytes;
+    // A's k slots (2t, 2t+1) and (2t+8, 2t+9) of k16 step q of a 64-column
+    // tile are the tile's columns 16q + 2t, + 1 and 16q + 8 + 2t, + 1:
+    // weight bytes 16q + 2t and 16q + 8 + 2t (int4: their low nibbles for
+    // the first half, their high nibbles for the second)
+    uint32_t raw[16];  // [q][row gid, gid + 8, the same at + 8 columns]
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int q = i / 4, k = i % 4;
+      const int row = r0 + 8 * (k & 1);
+      raw[i] = *reinterpret_cast<const uint16_t*>(
+          wst + swz64(row * kChunk + 16 * q + 8 * (k >> 1) + 2 * tig));
+    }
+#pragma unroll
+    for (int step = 0; step < kSteps; ++step) {
+      const int q = step / Lay::kAtoms, atom = step % Lay::kAtoms;
+      uint32_t a[4];  // rows gid, gid + 8 at slots (2t, 2t+1); the same at (2t+8, 2t+9)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (kBits == 4) {
+          uint32_t lo, hi;
+          nibble_pairs_to_bf16(raw[4 * q + k], lo, hi);
+          a[k] = atom ? hi : lo;
+        } else {
+          a[k] = int8_pair_to_bf16(raw[4 * q + k]);
+        }
+      }
+      wgmma_fence();
+      Wgmma<kN>::run(acc, a, b_desc(xst + atom * kN * 128 + 32 * q), it > 0 || step > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before has read its A registers
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) asm volatile("" : "+f"(acc[e])::"memory");
+
+  if (splits > 1) {
+    // each block's partial in its own fragment order: the tile's split sp
+    // at part + ((tile * splits + sp) * kN * kBN), float4 j of thread tid at
+    // [j][tid], so that every store and load is 16 bytes, a warp's 512
+    // contiguous
+    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    float4* mine = reinterpret_cast<float4*>(part) + (tile * splits + sp) * (kN * kBN / 4);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+      __stcg(mine + j * kWgThreads + tid,
+             make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+    // the tile's last block to arrive adds the partials in split order
+    // (fixed: the same for every M; its own from its registers) and zeroes
+    // the tile's counter again
+    __syncthreads();  // every partial of this block is written
+    int* counter = counters + tile;
+    int* arrived_last = reinterpret_cast<int*>(smem);
+    if (tid == 0) {
+      // release: the block's partials (ordered before by the barrier) before
+      // its arrival; acquire: every other block's partials before the sum
+      int before;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                   : "=r"(before) : "l"(counter) : "memory");
+      *arrived_last = before == splits - 1;
+    }
+    __syncthreads();
+    if (!*arrived_last) return;
+    const float4* first = reinterpret_cast<const float4*>(part) + tile * splits * (kN * kBN / 4);
+    constexpr int kBatch4 = 2;  // float4s of every split in flight together
+#pragma unroll
+    for (int j0 = 0; j0 < kN / 8; j0 += kBatch4) {
+      float4 t[kMaxSplits][kBatch4];
+#pragma unroll
+      for (int g = 0; g < kMaxSplits; ++g)
+#pragma unroll
+        for (int b = 0; b < kBatch4; ++b) {
+          const int j = j0 + b;
+          if (j < kN / 8 && g < splits && g != sp)
+            t[g][b] = __ldcg(first + (g * (kN / 8) + j) * kWgThreads + tid);
+        }
+#pragma unroll
+      for (int b = 0; b < kBatch4; ++b) {
+        const int j = j0 + b;
+        if (j >= kN / 8) continue;
+        const float4 own = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+        float4 v = sp == 0 ? own : t[0][b];
+#pragma unroll
+        for (int g = 1; g < kMaxSplits; ++g)
+          if (g < splits) {
+            const float4 u = g == sp ? own : t[g][b];
+            v.x += u.x;
+            v.y += u.y;
+            v.z += u.z;
+            v.w += u.w;
+          }
+        acc[4 * j] = v.x;
+        acc[4 * j + 1] = v.y;
+        acc[4 * j + 2] = v.z;
+        acc[4 * j + 3] = v.w;
+      }
+    }
+    if (tid == 0) *counter = 0;
+  }
+
+  // acc[4j + e]: weight row r0 + 8 (e >> 1), activation row 8j + 2t + (e & 1)
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + 8 * j + 2 * tig + (e & 1);
+      const int n = n0 + r0 + 8 * (e >> 1);
+      if (m < M && n < N) y[(size_t)m * N + n] = scaled<false>(acc[4 * j + e], nullptr, s, m, n);
+    }
+}
+
 template <bool kA8>
 int splits_for(int N, int K, int bits) {
   const int Kb = bits == 4 ? K / 2 : K;
@@ -498,64 +828,197 @@ int splits_for(int N, int K, int bits) {
   return g > 1 ? g : 1;
 }
 
-// The kernel's dynamic shared memory may exceed the 48 KB default; the
-// raised limit belongs to the current device, so it is set once per device.
-template <int kBits, bool kA8>
-cudaError_t raise_smem_limit() {
-  static std::atomic<uint64_t> done{0};  // bit i: device i
+// A kernel's dynamic shared memory may exceed the 48 KB default; the
+// raised limit belongs to the current device, so it is set once per device
+// (bit i of `done`: device i).
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(quant_linear_kernel<kBits, kA8>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tile<kBits, kA8>::kSmem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
 }
+template <int kBits, bool kA8>
+cudaError_t raise_smem_limit() {
+  static std::atomic<uint64_t> done{0};
+  return raise_smem_limit(quant_linear_kernel<kBits, kA8>, Tile<kBits, kA8>::kSmem, done);
+}
+template <int kBits, int kN>
+cudaError_t raise_smem_limit_wg() {
+  static std::atomic<uint64_t> done{0};
+  return raise_smem_limit(quant_linear_kernel_wg<kBits, kN>, WgTile<kBits, kN>::kSmem, done);
+}
 
+// K1's activation rows per block (wgmma's n) for M rows: M cut into
+// ceil(M / kWgMaxN) tiles of equal rows, rounded up to 16 (up to 16 rows)
+// or to a multiple of 32
+inline int wg_rows(int M) {
+  const int tiles = (M + kWgMaxN - 1) / kWgMaxN;
+  const int rows = (M + tiles - 1) / tiles;
+  return rows <= 16 ? 16 : (rows + 31) / 32 * 32;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda), or null
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// K1's tensor maps: the activations x [M, K] bf16 in boxes of kN rows x 64
+// columns, 128-byte swizzle (int4: as [M][2][K/2], so that a box never
+// crosses into the second half); the weight [N, Kb] bytes in boxes of 128
+// rows x 64 bytes, 64-byte swizzle. Out-of-range rows and columns read 0.
+template <int kBits, int kN>
+bool encode_maps(CUtensorMap* tx, CUtensorMap* tw, const void* x, const void* w, int M, int N,
+                 int K) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t Kb = kBits == 4 ? K / 2 : K;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  CUresult rx;
+  if (kBits == 4) {
+    const cuuint64_t dims[3] = {Kb, 2, (cuuint64_t)M};
+    const cuuint64_t strides[2] = {2 * Kb, 2 * (cuuint64_t)K};
+    const cuuint32_t box[3] = {64, 1, kN};
+    rx = encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {2 * (cuuint64_t)K};
+    const cuuint32_t box[2] = {64, kN};
+    rx = encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  const cuuint64_t wdims[2] = {Kb, (cuuint64_t)N};
+  const cuuint64_t wstrides[1] = {Kb};
+  const cuuint32_t wbox[2] = {kChunk, (cuuint32_t)Warps<false>::kBN};
+  const CUresult rw = encode(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), wdims,
+                             wstrides, wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rx == CUDA_SUCCESS && rw == CUDA_SUCCESS;
+}
+
+template <int kBits, int kN>
+int launch_wg(const void* x, const void* w, const void* s, void* y, void* part, void* counters,
+              int M, int N, int K, int n_chunks, int splits, cudaStream_t stream) {
+  const cudaError_t attr = raise_smem_limit_wg<kBits, kN>();
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tx, tw;
+  if (!encode_maps<kBits, kN>(&tx, &tw, x, w, M, N, K)) return (int)cudaErrorInvalidValue;
+  constexpr int kBN = Warps<false>::kBN;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kN - 1) / kN, splits);
+  quant_linear_kernel_wg<kBits, kN><<<grid, kWgThreads, WgTile<kBits, kN>::kSmem, stream>>>(
+      tx, tw, static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(part), static_cast<int*>(counters), M, N, n_chunks, splits);
+  return (int)cudaGetLastError();
+}
+
+template <int kBits>
+int launch_wg_rows(const void* x, const void* w, const void* s, void* y, void* part, void* counters,
+              int M, int N, int K, int n_chunks, int splits, cudaStream_t stream) {
+#define QL_CASE(n)                                                                    \
+  case n:                                                                             \
+    return launch_wg<kBits, n>(x, w, s, y, part, counters, M, N, K, n_chunks, splits, \
+                               stream);
+  switch (wg_rows(M)) {
+    QL_CASE(16) QL_CASE(32) QL_CASE(64) QL_CASE(96) QL_CASE(128) QL_CASE(160) QL_CASE(192)
+    QL_CASE(224) QL_CASE(256)
+  }
+#undef QL_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 (kA8 false) on quant_linear_kernel_wg, K2 on quant_linear_kernel
 template <int kBits, bool kA8>
 int launch(const void* x, const void* xs, const void* w, const void* s, void* y, void* part,
            void* counters, int M, int N, int K, cudaStream_t stream) {
-  using AccT = typename Acc<kA8>::T;
-  const cudaError_t attr = raise_smem_limit<kBits, kA8>();
-  if (attr != cudaSuccess) return (int)attr;
   const int Kb = kBits == 4 ? K / 2 : K;
   const int n_chunks = (Kb + kChunk - 1) / kChunk;
   const int splits = splits_for<kA8>(N, K, kBits);
   if (splits > 1 && (part == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
-  constexpr int kBN = Warps<kA8>::kBN;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  quant_linear_kernel<kBits, kA8>
-      <<<grid, Warps<kA8>::kThreads, Tile<kBits, kA8>::kSmem, stream>>>(
-      static_cast<const uint8_t*>(x), static_cast<const float*>(xs),
-      static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(s),
-      static_cast<__nv_bfloat16*>(y), static_cast<AccT*>(part), static_cast<int*>(counters),
-      M, N, K, n_chunks, splits);
-  return (int)cudaGetLastError();
+  if constexpr (!kA8) {
+    return launch_wg_rows<kBits>(x, w, s, y, part, counters, M, N, K, n_chunks, splits, stream);
+  } else {
+    const cudaError_t attr = raise_smem_limit<kBits, kA8>();
+    if (attr != cudaSuccess) return (int)attr;
+    constexpr int kBN = Warps<kA8>::kBN;
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+    quant_linear_kernel<kBits, kA8>
+        <<<grid, Warps<kA8>::kThreads, Tile<kBits, kA8>::kSmem, stream>>>(
+        static_cast<const uint8_t*>(x), static_cast<const float*>(xs),
+        static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(s),
+        static_cast<__nv_bfloat16*>(y), static_cast<int*>(part), static_cast<int*>(counters),
+        M, N, K, n_chunks, splits);
+    return (int)cudaGetLastError();
+  }
 }
 
-template <int kBits, bool kA8>
-int resident() {
-  cudaError_t err = raise_smem_limit<kBits, kA8>();
+// blocks the current device holds at once: K2's kernel, or K1's at its
+// widest n
+template <typename Kernel>
+int resident(Kernel kernel, int threads, int smem, cudaError_t err) {
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, quant_linear_kernel<kBits, kA8>, Warps<kA8>::kThreads,
-        Tile<kBits, kA8>::kSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
+template <int kBits, bool kA8>
+int resident() {
+  if constexpr (kA8) {
+    return resident(quant_linear_kernel<kBits, kA8>, Warps<kA8>::kThreads,
+                    Tile<kBits, kA8>::kSmem, raise_smem_limit<kBits, kA8>());
+  } else {
+    return resident(quant_linear_kernel_wg<kBits, kWgMaxN>, kWgThreads,
+                    WgTile<kBits, kWgMaxN>::kSmem, raise_smem_limit_wg<kBits, kWgMaxN>());
+  }
 }
 
 }  // namespace
 
 // Splits of the K range for a weight [N, K] of `bits` (4 or 8) under K1
-// (a8 == 0) or K2: the caller's scratch holds splits * M * N f32 (a16) or
-// int32 (a8) elements when it is above 1. Depends on N, K, bits and a8 only.
+// (a8 == 0) or K2; above 1, the caller's scratch holds
+// sjd_quant_linear_scratch elements. Depends on N, K, bits and a8 only.
 extern "C" int sjd_quant_linear_splits(int N, int K, int bits, int a8) {
   return a8 ? splits_for<true>(N, K, bits) : splits_for<false>(N, K, bits);
+}
+
+// Elements (f32 for a8 == 0, int32 otherwise) of the scratch that a launch
+// on x [M, K] against a weight [N, K] of `bits` needs for its split partials:
+// 0 for one split; K2's splits * M * N; K1's splits * its tiles * 128 weight
+// rows * its activation rows per tile (wg_rows), a whole tile each.
+extern "C" long long sjd_quant_linear_scratch(int M, int N, int K, int bits, int a8) {
+  const int g = a8 ? splits_for<true>(N, K, bits) : splits_for<false>(N, K, bits);
+  if (g <= 1) return 0;
+  if (a8) return (long long)g * M * N;
+  const int n = wg_rows(M);
+  const long long bn = Warps<false>::kBN;
+  return (long long)g * ((M + n - 1) / n) * n * ((N + bn - 1) / bn) * bn;
 }
 
 // K1's (a8 == 0) or K2's block: its weight rows (dim 0) or activation rows
@@ -577,8 +1040,9 @@ extern "C" int sjd_quant_linear_resident(int bits, int a8) {
 
 // a8 == 0: x bf16 [M, K], xs unused; a8 != 0: x int8 [M, K], xs f32 [M].
 // w: int8 [N, K] (bits 8) or packed uint8 [N, K/2] (bits 4); s bf16 [N];
-// y bf16 [M, N]; part: the scratch and counters: int32 zeros, one per
-// (N tile, M tile) (both NULL for one split). The weight bytes per row must
+// y bf16 [M, N]; part: the scratch (sjd_quant_linear_scratch elements) and
+// counters: int32 zeros, one per (N tile, 32-row M tile) (both NULL for one
+// split). The weight bytes per row must
 // be a multiple of 16, x and w 16-byte aligned (checked by the Python
 // wrapper; bits other than 4 and 8 return cudaErrorInvalidValue).
 extern "C" int sjd_quant_linear(const void* x, const void* xs, const void* w, const void* s,

@@ -11,14 +11,17 @@ the bf16 weights); on CPU tensors it runs the plain version beside it, the
 same function in PyTorch. There is no fallback from one to the other: CUDA
 tensors the kernel does not take raise.
 
-What bounds the kernels on the H100 is the bytes they move: the weights
-from HBM, the activations, which every block of weight rows stages again
-from L2, and the partial sums of a K range split over several blocks. K1
-takes 128 weight rows per block, so that each staged bf16 activation chunk
-feeds all of them (K2, whose activations are half the bytes, keeps 64), and
-both add the split K range's partials inside the same launch: each product
-is one launch. The split depends on N, K, the bits and the kernel only, so
-a row's output does not depend on how many rows were multiplied with it. The split sum counts arrivals on int32 counters
+K1 (``quant_linear_a16``) runs on Hopper's wgmma: a block's 128 weight
+rows against up to 256 activation rows at once (every row of the launch at
+M <= 256), so the packed weights are read and widened once per launch and
+the product runs near the tensor cores' rate, which bounds it at the decode
+windows' rows; TMA brings each chunk's tiles. K2 (``quant_linear_a8``),
+whose bound at its rows is the bytes it moves, takes 64 weight rows and 32
+activation rows per block on mma.sync. Both add the split K range's
+partials inside the same launch: each product is one launch. The split
+depends on N, K, the bits and the kernel only, and the K order inside a row
+is fixed, so a row's output does not depend on how many rows were multiplied
+with it. The split sum counts arrivals on int32 counters
 that this module keeps, one buffer per device, zeroed: it grows only
 outside a CUDA graph capture (a call under capture that would need more
 raises: run the step once eagerly first, as the engine's warm-up does) and
@@ -50,6 +53,8 @@ def _lib():
                        (lib.sjd_quant_linear_resident, 2)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * n_args
+    lib.sjd_quant_linear_scratch.restype = ctypes.c_longlong
+    lib.sjd_quant_linear_scratch.argtypes = [ctypes.c_int] * 5
     return lib
 
 
@@ -67,9 +72,16 @@ def tile(a8: bool) -> tuple:
     return int(lib.sjd_quant_linear_tile(0, int(a8))), int(lib.sjd_quant_linear_tile(1, int(a8)))
 
 
+def scratch(M: int, N: int, K: int, bits: int, a8: bool) -> int:
+    """Elements of the split partials' scratch for x [M, K] against an
+    [N, K] weight (0 for one split): K2's splits x M x N, K1's whole tiles."""
+    return int(_lib().sjd_quant_linear_scratch(M, N, K, bits, int(a8)))
+
+
 def grid(M: int, N: int, K: int, bits: int, a8: bool) -> tuple:
-    """K1's or K2's grid for x [M, K] against an [N, K] weight: (N tiles,
-    M tiles, splits)."""
+    """For x [M, K] against an [N, K] weight: (N tiles, 32-row M tiles,
+    splits), which size the split sum's counters (K2's grid; K1's M tiles
+    are fewer, of up to 256 rows)."""
     bn, bm = tile(a8)
     return -(-N // bn), -(-M // bm), splits(N, K, bits, a8)
 
@@ -168,7 +180,8 @@ def _launch(x2: Tensor, xs: Tensor, q: Tensor, s: Tensor, bits: int, a8: bool) -
     part = count = None
     if g > 1:
         count = counters(dev, tiles_n * tiles_m)
-        part = torch.empty((g, M, N), dtype=torch.int32 if a8 else torch.float32, device=dev)
+        part = torch.empty(scratch(M, N, K, bits, a8), dtype=torch.int32 if a8 else torch.float32,
+                           device=dev)
     y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rc = _lib().sjd_quant_linear(ptr(x2), ptr(xs if a8 else None), ptr(q), ptr(s), ptr(y),

@@ -2,15 +2,16 @@
 
     python3 sjd_tpu_torch/ops/quant_sweep.py [--variants NAME ...] [--against DIR]
 
-``csrc/quant_linear.cu`` keeps its block shape and ring as plain
-constants (``kWarpsN``, ``kWarpRows``, ``kWarpsK``, ``kStages``,
-``kBlocksPerSM``, and ``kStageX``, which a timing copy sets
-false to skip the activation loads). For each variant in ``VARIANTS`` this
-copies the package into ``build/quant_sweep/<variant>/`` at the repository
-root, sets the constants in the copy and builds every copy at once (one
-``nvcc`` each, through each tree's own ``ops/_build.py``). Then one process loads
-every library and times them in turns (the variants in order, then in the
-reverse order; the smaller of the two times is kept) at the 7B's weight
+``csrc/quant_linear.cu`` keeps its block shapes and rings as plain
+constants (K1's ``kWgMaxStages``; K2's ``kWarpsNA8``, ``kWarpsKA8``,
+``kStages``, ``kBlocksPerSM``; both kernels' ``kMaxSplits``; and
+``kStageX``, which a timing copy sets false to skip the activation loads).
+For each variant in ``VARIANTS`` this copies the package into
+``build/quant_sweep/<variant>/`` at the repository root, sets the constants
+in the copy and builds every copy at once (one ``nvcc`` each, through each
+tree's own ``ops/_build.py``). Then one process loads every library and
+times them in turns (the variants in order, then in the reverse order; the
+smaller of the two times is kept) at the 7B's and Emu3-Gen 8B's weight
 shapes (``CASES``): each call on the next of enough weight copies to
 overflow the L2, timed as ``chip_smoke.py`` times its kernels. Each case
 carries every variant's largest difference from the plain version and
@@ -42,32 +43,28 @@ REPO = Path(__file__).resolve().parents[2]
 SWEEP_DIR = REPO / "build" / "quant_sweep"
 
 # each variant: the constants it sets in a copy; the others keep the
-# source's (K1: 8 warps of 16 weight rows, 1 along K; K2: 4 of 16, 2 along
-# K; 4 stages, 2 blocks per SM, at most 4 splits)
-_K1_N64 = dict(kWarpsNA16=4, kWarpsKA16=2)
-_N128_W32 = dict(kWarpRows=32, kWarpsNA16=4, kWarpsKA16=2, kWarpsNA8=4, kWarpsKA8=2,
-                 kStages=3)
+# source's (K1: a ring of at most 8 chunks; K2: 4 warps of 16 weight rows,
+# 2 along K, 4 stages, 2 blocks per SM; both at most 4 splits)
 VARIANTS = {
-    # the tile, ring and split cap of the kernel that added its partials in
-    # a second launch: 64 weight rows, 4 stages of 2 chunks, 8 splits
-    "n64_s4": dict(_K1_N64, kMaxSplits=8),
-    "n64_s4_nox": dict(_K1_N64, kMaxSplits=8, kStageX="false"),
     "default": {},
     "default_nox": dict(kStageX="false"),
+    "wg_stages4": dict(kWgMaxStages=4),
     "default_g8": dict(kMaxSplits=8),
     "a8_n128_w16_k1": dict(kWarpsNA8=8, kWarpsKA8=1),
-    "n128_w32_k2_s3": dict(_N128_W32),
-    "n128_w32_k2_s3_g8": dict(_N128_W32, kMaxSplits=8),
 }
 
-# (kernel, bits, weight, rows): the 7B's weights (N, K) at a generate
-# window's rows (32) and a serve window's (64)
+# (kernel, bits, weight, rows): the 7B's and Emu3-Gen 8B's weights (N, K)
+# at the solo generate window's rows (32), the serve path's (64), the
+# benchmark cells' decode windows (96: Emu3, 3 slots; 160: Lumina, 5
+# slots) and a refill's prefill (990)
 SHAPES = {"wq": (4096, 4096), "w_gate": (11008, 4096), "w_down": (4096, 11008),
-          "lm_head": (65536, 4096)}
-CASES = [("a16", 4, w, m) for m in (32, 64) for w in ("wq", "w_gate", "w_down")] + [
-    ("a16", 8, "wq", 32), ("a16", 8, "lm_head", 32),
-    ("a8", 4, "wq", 32), ("a8", 4, "w_gate", 32), ("a8", 4, "w_down", 32),
-    ("a8", 8, "lm_head", 32)]
+          "lm_head": (65536, 4096), "emu3_w_gate": (14336, 4096),
+          "emu3_lm_head": (184622, 4096)}
+CASES = ([("a16", 4, w, m) for m in (32, 64, 96, 160, 990) for w in ("wq", "w_gate", "w_down")]
+         + [("a16", 8, "wq", 32)] + [("a16", 8, "lm_head", m) for m in (32, 96, 160)]
+         + [("a16", 4, "emu3_w_gate", 96), ("a16", 8, "emu3_lm_head", 96)]
+         + [("a8", 4, "wq", 32), ("a8", 4, "w_gate", 32), ("a8", 4, "w_down", 32),
+            ("a8", 8, "lm_head", 32)])
 
 
 def make_copy(name: str, constants: dict) -> Path:
@@ -87,6 +84,11 @@ def make_copy(name: str, constants: dict) -> Path:
     return root
 
 
+# the ptxas lines a build reports: each kernel's name, registers and spills,
+# and any warning (wgmma serialized)
+_PTXAS_KEYS = ("Compiling entry", "registers", "spill", "wgmma", "arning")
+
+
 def _build_child(root: str) -> None:
     """In a process of its own: build the kernel of the tree at ``root``
     with that tree's ``ops/_build.py``; prints its library and ptxas report."""
@@ -96,7 +98,7 @@ def _build_child(root: str) -> None:
     logs = _build.build_all(["quant_linear"])
     print(json.dumps({"lib": str(_build.library_path("quant_linear")),
                       "ptxas": [ln.strip() for log in logs.values() for ln in log.splitlines()
-                                if "registers" in ln or "spill" in ln]}))
+                                if any(k in ln for k in _PTXAS_KEYS)]}))
 
 
 class Kernel:
@@ -114,6 +116,9 @@ class Kernel:
         lib.sjd_quant_linear_splits.argtypes = [ctypes.c_int] * (4 if self.counted else 3)
         if self.counted:
             lib.sjd_quant_linear_tile.argtypes = [ctypes.c_int] * 2
+        if hasattr(lib, "sjd_quant_linear_scratch"):
+            lib.sjd_quant_linear_scratch.restype = ctypes.c_longlong
+            lib.sjd_quant_linear_scratch.argtypes = [ctypes.c_int] * 5
         self.lib = lib
 
     def splits(self, N: int, K: int, bits: int, a8: bool) -> int:
@@ -133,7 +138,9 @@ class Kernel:
         N = q.shape[0]
         g = self.splits(N, K, bits, a8)
         y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-        part = torch.empty((g, M, N), dtype=torch.int32 if a8 else torch.float32,
+        numel = (self.lib.sjd_quant_linear_scratch(M, N, K, bits, int(a8))
+                 if hasattr(self.lib, "sjd_quant_linear_scratch") else g * M * N)
+        part = torch.empty(max(numel, 1), dtype=torch.int32 if a8 else torch.float32,
                            device=x.device)
         count = torch.zeros(-(-N // self.rows(a8)) * -(-M // 32), dtype=torch.int32,
                             device=x.device)

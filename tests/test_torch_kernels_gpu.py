@@ -728,7 +728,8 @@ def test_quant_linear_a16_emu3_shapes_match_plain(cuda, weight, M):
                          ids=["split", "one_split", "down"])
 def test_quant_linear_rows_do_not_depend_on_the_row_count(cuda, shape, a8):
     """A row's output is bit-identical whether it is multiplied alone, in a
-    decode window (32 rows), a serve window (64) or a prefill (160)."""
+    decode window (32 rows), a serve window (64), the 3-slot cell's window
+    (96) or a prefill (160)."""
     from sjd_tpu_torch.models.transformer import _quantize_act
     from sjd_tpu_torch.ops import quant_linear as ql
 
@@ -742,7 +743,7 @@ def test_quant_linear_rows_do_not_depend_on_the_row_count(cuda, shape, a8):
         return ql.quant_linear_a16(rows, q, s, bits=4)
 
     full = run(x)
-    for m in (1, 32, 64):
+    for m in (1, 32, 64, 96):
         assert torch.equal(run(x[:m].contiguous()), full[:m]), m
     assert torch.equal(run(x[37:38].contiguous()), full[37:38])
 
@@ -1313,3 +1314,84 @@ def test_uint8_upload_is_crop_fitted_without_pil(cuda, monkeypatch):
     block = proc.process_image(a)
     grid = image_grid_from_block(block, mapping=model.extras["mapping"])
     assert grid.shape == (ch // 16, cw // 16)
+
+
+# K1 (wgmma) at the weights the quantized configurations run, (N, K, bits):
+# the 7B's and Emu3-Gen 8B's projections at W4A16 and W8A16 (wk/wv at N =
+# 1024) and both int8 heads (Emu3's 184622 rows are not a multiple of the
+# block's 128); at rows from one to a refill's prefill: 1 and 30 (prefill
+# rows below one wgmma tile), the solo window (32), the benchmark cells'
+# windows (96, 160), and two and four M tiles (257, 990)
+K1_WEIGHTS = {"wq": (4096, 4096), "w_gate": (11008, 4096), "w_down": (4096, 11008),
+              "emu3_wk": (1024, 4096), "emu3_w_gate": (14336, 4096),
+              "emu3_w_down": (4096, 14336)}
+K1_HEADS = {"lm_head": (65536, 4096), "emu3_lm_head": (184622, 4096)}
+K1_ROWS = (1, 30, 32, 96, 160, 257, 990)
+K1_CASES = ([(w, bits) for w in K1_WEIGHTS for bits in (4, 8)]
+            + [(w, 8) for w in K1_HEADS])
+
+
+@pytest.mark.parametrize("M", K1_ROWS)
+@pytest.mark.parametrize("weight,bits", K1_CASES)
+def test_quant_linear_a16_matches_plain_at_every_row_count(cuda, weight, bits, M):
+    """K1 within one bf16 rounding of its plain version at every shape and
+    row count the port runs it at, one launch each."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    N, K = {**K1_WEIGHTS, **K1_HEADS}[weight]
+    x, q, s = _quant_inputs(cuda, M, N, K, bits, seed=M + bits)
+    before = ql.quant_linear_a16.launches
+    got = ql.quant_linear_a16(x, q, s, bits=bits)
+    assert ql.quant_linear_a16.launches == before + 1
+    want = ql.quant_linear_a16_plain(x, q, s, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("weight,bits", [("wq", 4), ("w_down", 4), ("emu3_w_gate", 4),
+                                         ("wq", 8), ("lm_head", 8)])
+def test_quant_linear_a16_rows_equal_across_row_counts_and_tiles(cuda, weight, bits):
+    """Every row of a 160-row call equals, bit for bit, the same row computed
+    at 1, 32 and 96 rows, and inside 257 and 990 rows (two and four M tiles
+    of K1's block): the K order inside a row is the same at every wgmma n."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    N, K = {**K1_WEIGHTS, **K1_HEADS}[weight]
+    x, q, s = _quant_inputs(cuda, 160, N, K, bits, seed=7)
+    full = ql.quant_linear_a16(x, q, s, bits=bits)
+    for m in (1, 32, 96):
+        assert torch.equal(ql.quant_linear_a16(x[:m].contiguous(), q, s, bits=bits), full[:m]), m
+    for m in (257, 990):
+        big = torch.cat([x] * 7)[:m].contiguous()
+        got = ql.quant_linear_a16(big, q, s, bits=bits)
+        for r in range(0, m - 159, 160):
+            assert torch.equal(got[r:r + 160], full), (m, r)
+
+
+def test_quant_linear_a16_graph_replay_equals_eager(cuda):
+    """K1 captured in a CUDA graph (tensor maps and split counters as the
+    capture froze them) gives the eager call's output on every replay, also
+    after the inputs change in place."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    x, q, s = _quant_inputs(cuda, 160, 4096, 4096, 4, seed=11)
+    x2, _, _ = _quant_inputs(cuda, 160, 4096, 4096, 4, seed=12)
+    eager = ql.quant_linear_a16(x, q, s, bits=4)
+    eager2 = ql.quant_linear_a16(x2, q, s, bits=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ql.quant_linear_a16(x, q, s, bits=4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ql.quant_linear_a16(x, q, s, bits=4)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager2)

@@ -260,3 +260,24 @@ def test_forward_on_quantized_params_equals_jax(act):
     want = np.asarray(want, np.float32)
     err = np.abs(got.numpy() - want).max()
     assert err <= 1e-3 * np.abs(want).max(), (act, err)
+
+
+def test_k1_kernels_carry_a_name_the_benchmark_trace_finds():
+    """port_bench reads K1's launches out of a device trace by name
+    (``port_bench.trace.K1_NAMES``) and counts one launch per product:
+    every ``__global__`` kernel of ``csrc/quant_linear.cu`` carries one of
+    those names, K1's wgmma kernel among them."""
+    import re
+    from pathlib import Path
+
+    from port_bench.trace import K1_NAMES
+
+    src = (Path(__file__).resolve().parents[1] / "sjd_tpu_torch" / "csrc"
+           / "quant_linear.cu").read_text()
+    # __global__ void, its attributes (__launch_bounds__(...) ...), its name
+    names = re.findall(r"__global__\s+void\s+(?:__\w+__\((?:[^()]|\([^()]*\))*\)\s*)*"
+                       r"(\w+)\s*\(", src)
+    assert "quant_linear_kernel_wg" in names, names
+    assert "quant_linear_kernel" in names, names
+    for name in names:
+        assert any(k in name for k in K1_NAMES), name
