@@ -21,12 +21,11 @@ import time
 import numpy as np
 import torch
 
-from ..account import from_calls
 from ..families import left_pad
 from ..recorder import EngineProxy, StepLog
 from ..reference.sampling import generator_seed
 from ..traffic.generator import Traffic
-from . import Window, warm_image
+from . import Chunks, Window, in_flight, warm_image
 
 
 def _warm(ctx, traffic):
@@ -60,33 +59,12 @@ def run(ctx) -> Window:
     traffic = Traffic(cfg, mix, ctx.seed)
     _warm(ctx, traffic)
 
-    steps = []  # (kind, t_start, t_end, calls) per chunk step of the window
-    last = {}
+    def quiet_log():
+        # the batcher logs each batch that the closed window fails
+        logging.getLogger("sjd_tpu_torch.serving").setLevel(logging.CRITICAL)
 
-    def on_boundary(px, now, closing):
-        i = len(px.calls)
-        if not last:
-            if tracer is not None:
-                rec.annotate = True
-                tracer.start()
-        else:
-            kind = ("quiet" if tracer is None or not tracer.profiled() else
-                    "active" if tracer.active() else "warm")
-            steps.append((kind, last["t"], now, px.calls[last["i"]:i]))
-            if closing:
-                # the batcher logs each batch that the closed window fails
-                logging.getLogger("sjd_tpu_torch.serving").setLevel(logging.CRITICAL)
-            if tracer is not None:
-                if closing:
-                    tracer.stop()
-                else:
-                    tracer.step()
-                # the trace reading is no part of the window: the next step
-                # starts after it, and the window runs on for as long
-                px.excluded_s = tracer.read_s
-        last.update(i=i, t=time.perf_counter())
-
-    proxy = EngineProxy(sys_.engine, rec, ctx.seconds, on_boundary=on_boundary)
+    chunks = Chunks(rec, tracer, on_close=quiet_log)
+    proxy = EngineProxy(sys_.engine, rec, ctx.seconds, on_boundary=chunks)
     # a step takes 5 ms or more: room for the window and its set-up
     log = StepLog(sys_.engine, mix["batch"], int((ctx.seconds + 120) * 200))
     batcher = StreamingBatcher(proxy, sys_.params, batch=mix["batch"],
@@ -163,20 +141,9 @@ def run(ctx) -> Window:
     batcher.close(120)
     log.close()
     calls = proxy.window_calls()
-    T, f = mix["window"], 2
-    quiet = [c for s in steps if s[0] == "quiet" for c in s[3]]
-    active = [c for s in steps if s[0] == "active" for c in s[3]]
-    w = Window(
-        t_open=proxy.t_open, t_close=proxy.t_close,
-        work=from_calls(calls, T, f, proxy.t_close - proxy.t_open),
-        active=(from_calls(active, T, f, sum(s[2] - s[1] for s in steps if s[0] == "active"))
-                if tracer is not None else None),
-        quiet=from_calls(quiet, T, f, sum(s[2] - s[1] for s in steps if s[0] == "quiet")),
-        items=[], attempted=0, failed=len(failed), peak_setup=proxy.peak_setup,
-        peak_window=proxy.peak_window,
-        read_s=tracer.read_s if tracer is not None else 0.0)
+    w = chunks.window(proxy, mix["window"], len(failed))
     finished = [it for it in done if proxy.t_open <= it["t_done"] <= proxy.t_close]
-    w.items = finished + _in_flight(proxy, log, submitted, finished)
+    w.items = finished + in_flight(proxy, log, submitted, finished)
     for it in w.items:
         it.update(prompt_rows=log.prompt_rows, steps=log.steps_of(generator_seed(it["seed"])))
     w.attempted = len(w.items) + len(failed)
@@ -187,22 +154,3 @@ def run(ctx) -> Window:
         refills=sum(c.kind == "refill" for c in calls),
         lengths_at_close=proxy.final[1])
     return w
-
-
-def _in_flight(proxy, log, submitted, finished):
-    """The requests still in the slots at the closing boundary, with the
-    tokens they had committed then (``gen`` stops there): each slot's
-    request is the one whose seed gave the slot's generator."""
-    rows, lengths = proxy.final
-    by_seed = {generator_seed(req.seed): (i, req) for i, req in submitted.items()}
-    seen = {it["index"] for it in finished}
-    out = []
-    for b, n in enumerate(lengths):
-        i, req = by_seed.get(log.seeds[-1][b] if log.seeds else None, (None, None))
-        if req is None or i in seen:
-            continue
-        out.append(dict(index=i, prompt=req.prompt, neg=req.neg_prompt,
-                        gen=[int(t) for t in rows[b][log.prompt_rows:n]], seed=req.seed,
-                        image=None, in_flight=True))
-        seen.add(i)
-    return out

@@ -1,12 +1,19 @@
-"""The decoder in float32: embedding, pre-norm layers (RMSNorm, attention
-with optional per-head LayerNorm on q and k, split-half RoPE, SwiGLU),
-final norm and head, over whole sequences with the causal mask, and over
+"""The decoder in float32: embedding, layers (attention with optional
+per-head LayerNorm on q and k, split-half RoPE, SwiGLU), final norm and
+head, over whole sequences with the causal mask, and over
 branches: short runs of other tokens that follow a prefix of a sequence
 (a decode step's drafts past the tokens it committed), each seeing that
 prefix and itself causally. Weights are drawn again layer by layer from
 their seed and dequantized as the configuration states (int4 projections,
 int8 head, bf16 embedding); the KV rows are rounded to int8 where the
-configuration keeps an int8 cache. TF32 is off while it runs."""
+configuration keeps an int8 cache. TF32 is off while it runs.
+
+A layer is pre-norm (RMSNorm on the attention's and the MLP's inputs) or,
+with ``swin_norm``, post-norm as Chameleon-34B's: each sublayer's input
+unnormalised and its output RMS-normalised before the residual add. A
+configuration that states structure the reference does not model is
+refused by name (:func:`refuse_unmodelled`): it would compute another
+model silently."""
 
 from __future__ import annotations
 
@@ -21,6 +28,46 @@ from .. import weights
 from .quant import dequant_rows, kv_int8
 
 BITS = {"w4a16": 4}
+KV_CACHES = ("int8", "bfloat16")
+# top-level keys of a configuration file that the reference reads or that
+# state nothing about the computation (names, provenance, notes)
+MODELLED = frozenset({
+    "name", "source", "model_type", "reduced", "assumed", "serving",
+    "hidden_size", "intermediate_size", "num_attention_heads", "num_key_value_heads",
+    "num_hidden_layers", "vocab_size", "rope_theta", "rms_norm_eps", "qk_layernorm",
+    "swin_norm", "max_position_embeddings", "tie_word_embeddings", "head_dim", "rope_style",
+})
+
+
+def refuse_unmodelled(cfg: dict) -> None:
+    """Raise ``ValueError``, naming the key, on a configuration the
+    reference does not model: a top-level key outside ``MODELLED``, tied
+    embeddings, RoPE other than 1-D, a head width other than
+    ``hidden_size / num_attention_heads``, weights or a KV cache of
+    another kind."""
+    for key in cfg:
+        if key not in MODELLED:
+            raise ValueError(f"the reference does not model the configuration key {key!r}")
+    for key in ("qk_layernorm", "swin_norm", "tie_word_embeddings"):
+        if not isinstance(cfg.get(key, False), bool):
+            raise ValueError(f"{key!r} must be true or false, not {cfg[key]!r}")
+    if cfg.get("tie_word_embeddings", False):
+        raise ValueError("the reference does not model 'tie_word_embeddings': true")
+    if cfg.get("rope_style", "1d") != "1d":
+        raise ValueError(f"the reference does not model 'rope_style': {cfg['rope_style']!r}")
+    d, H = cfg["hidden_size"], cfg["num_attention_heads"]
+    if d % H or cfg.get("head_dim", d // H) != d // H:
+        raise ValueError(f"the reference does not model 'head_dim': {cfg.get('head_dim')!r} "
+                         f"with hidden_size {d} over {H} heads")
+    if H % cfg["num_key_value_heads"]:
+        raise ValueError(f"'num_key_value_heads' {cfg['num_key_value_heads']} does not "
+                         f"divide {H} query heads")
+    srv = cfg["serving"]
+    if srv["weights"] not in BITS:
+        raise ValueError(f"the reference does not model 'serving.weights': {srv['weights']!r}")
+    if srv["kv_cache"] not in KV_CACHES:
+        raise ValueError(f"the reference does not model 'serving.kv_cache': "
+                         f"{srv['kv_cache']!r}")
 
 
 @contextlib.contextmanager
@@ -104,6 +151,7 @@ class Decoder:
     """The configuration's decoder, its weights drawn again."""
 
     def __init__(self, cfg: dict, device):
+        refuse_unmodelled(cfg)
         self.cfg, self.seed, self.device = cfg, weights.seed_of(cfg), torch.device(device)
         srv = cfg["serving"]
         self.bits = BITS[srv["weights"]]
@@ -112,6 +160,7 @@ class Decoder:
         self.D = cfg["hidden_size"] // self.H
         self.eps = cfg["rms_norm_eps"]
         self.qk_norm = bool(cfg.get("qk_layernorm", False))
+        self.swin = bool(cfg.get("swin_norm", False))
         self.qk_eps = srv.get("qk_norm_eps", 1e-5)
         self._head = None
 
@@ -136,10 +185,17 @@ class Decoder:
             pos = [p.to(self.device) for _, p in seqs]
             H, Hkv, D = self.H, self.Hkv, self.D
             theta = self.cfg["rope_theta"]
+            swin, eps = self.swin, self.eps
+
+            def pre(x):  # a sublayer's input
+                return x if swin else _rms(x, eps)
+
+            def post(x):  # a sublayer's output, before the residual add
+                return _rms(x, eps) if swin else x
 
             def qkv(w, h, positions):
                 n = h.shape[0]
-                a = _rms(h, self.eps)
+                a = pre(h)
                 q = (a @ w["wq"].t()).view(n, H, D)
                 k = (a @ w["wk"].t()).view(n, Hkv, D)
                 v = (a @ w["wv"].t()).view(n, Hkv, D)
@@ -151,16 +207,16 @@ class Decoder:
                 return q, k, v
 
             def mlp(w, h):
-                m = _rms(h, self.eps)
+                m = pre(h)
                 g, u = m @ w["w_gate"].t(), m @ w["w_up"].t()
-                return h + (F.silu(g) * u) @ w["w_down"].t()
+                return h + post((F.silu(g) * u) @ w["w_down"].t())
 
             for layer in range(self.cfg["num_hidden_layers"]):
                 w = {n: self._w(n, layer) for n in weights.decoder_shapes(self.cfg)}
                 for i, h in enumerate(hs):
                     n = h.shape[0]
                     q, k, v = qkv(w, h, pos[i])
-                    h = h + _attend(q, k, v).reshape(n, H * D) @ w["wo"].t()
+                    h = h + post(_attend(q, k, v).reshape(n, H * D) @ w["wo"].t())
                     hs[i] = mlp(w, h)
                     for g_i, (bh, start) in enumerate(bs.get(i, [])):
                         nb, m, d = bh.shape
@@ -168,7 +224,7 @@ class Decoder:
                         bq, bk, bv = qkv(w, bh.reshape(nb * m, d), bpos)
                         o = _attend_branches(bq.view(nb, m, H, D), bk.view(nb, m, Hkv, D),
                                              bv.view(nb, m, Hkv, D), k, v, start)
-                        bh = bh + (o.reshape(nb * m, H * D) @ w["wo"].t()).view(nb, m, d)
+                        bh = bh + post(o.reshape(nb * m, H * D) @ w["wo"].t()).view(nb, m, d)
                         bs[i][g_i] = (mlp(w, bh), start)
                 del w
             return ([_rms(h, self.eps) for h in hs],

@@ -1,8 +1,10 @@
-"""The harness end to end on the CPU at tiny sizes, both entries: the
+"""The harness end to end on the CPU at tiny sizes, both entries (the
+solo entry also on a tiny Chameleon-34B shape: swin-norm, group 8): the
 result line's keys, the checks last, and ``correct`` against the plain
 reference; then the same runs with the timed path broken underneath,
 which ``correct`` has to catch."""
 
+import dataclasses
 import json
 
 import pytest
@@ -14,7 +16,10 @@ from port_bench.tests import tiny
 CELLS = {
     "batcher": ("lumina7b-w4a16.batch5-768", "lumina-mgpt-7b-w4a16", "batch5-768"),
     "emu3": ("emu3gen-w4a16.batch3-720", "emu3-gen-8b-w4a16", "batch3-720"),
+    "solo": ("lumina7b-w4a16.solo-512", "lumina-mgpt-7b-w4a16", "solo-512"),
+    "solo34b": ("lumina7b-w4a16.solo-512", "lumina-mgpt-7b-w4a16", "solo-512"),
 }
+SHAPES = {"solo34b": "34b"}  # tiny.spec's shape
 # loose enough for bf16 logits of a 2-layer model on the CPU; the chip's
 # limits are the cell files'
 LIMITS = {"mean_gap": 0.1, "vq_mean_abs": 1.0}
@@ -22,8 +27,12 @@ LIMITS = {"mean_gap": 0.1, "vq_mean_abs": 1.0}
 
 def _run(kind, trace=False, seconds=2.0):
     torch.manual_seed(0)
-    spec = tiny.spec(*CELLS[kind], limits=dict(LIMITS))
+    spec = tiny.spec(*CELLS[kind], limits=dict(LIMITS), shape=SHAPES.get(kind))
     return run.run_cell(spec, 2**33 + 17, seconds, trace, "cpu")
+
+
+def _cfg(kind):
+    return tiny.spec(*CELLS[kind], shape=SHAPES.get(kind))["cfg"]
 
 
 @pytest.mark.parametrize("kind", sorted(CELLS))
@@ -40,7 +49,7 @@ def test_run_line(kind):
     assert run.forbidden_modules() == []
 
 
-@pytest.mark.parametrize("kind", ["batcher"])
+@pytest.mark.parametrize("kind", ["batcher", "solo"])
 def test_traced_run(kind):
     r = _run(kind, trace=True, seconds=3.0)
     assert {"tokens_per_forward", "engine_ms_per_forward"} <= set(r["metrics"])
@@ -54,7 +63,7 @@ def _altered_logits(monkeypatch, kind):
     from sjd_tpu_torch.models import transformer
 
     real = transformer.forward
-    tok = tiny.config(CELLS[kind][1])["serving"]["grammar"]["image_vocab_start"] + 1234
+    tok = _cfg(kind)["serving"]["grammar"]["image_vocab_start"] + 1234
 
     def forward(*a, **k):
         out = real(*a, **k)
@@ -85,22 +94,35 @@ def _stale_grammar(monkeypatch, kind):
     monkeypatch.setattr(SJDEngine, "refill", refill)
 
 
+def _flipped_swin(monkeypatch, kind):
+    """The program's layers with the other norm placement (pre-norm where
+    the configuration states swin-norm)."""
+    from port_bench import families
+
+    real = families.model_config
+    monkeypatch.setattr(families, "model_config", lambda cfg, act_quant="bf16": (
+        dataclasses.replace(real(cfg, act_quant), swin_norm=not cfg.get("swin_norm", False))))
+
+
 @pytest.mark.parametrize("kind,fault", [("batcher", "token"), ("emu3", "token"),
+                                        ("solo", "token"), ("solo34b", "token"),
                                         ("batcher", "frozen"), ("emu3", "frozen"),
-                                        ("batcher", "stale")])
+                                        ("solo", "frozen"), ("batcher", "stale"),
+                                        ("solo34b", "swin")])
 def test_broken_path_is_not_correct(monkeypatch, kind, fault):
-    {"token": _altered_logits, "frozen": _frozen_step, "stale": _stale_grammar}[fault](
-        monkeypatch, kind)
+    {"token": _altered_logits, "frozen": _frozen_step, "stale": _stale_grammar,
+     "swin": _flipped_swin}[fault](monkeypatch, kind)
     r = _run(kind)
     assert not r["correct"], r["checks"]
 
 
-def test_control_readings():
+@pytest.mark.parametrize("kind", ["batcher", "solo"])
+def test_control_readings(kind):
     """The control at a test size: a window served by the port's W4A8 path,
     and its bf16 VQ decode, judged by the same reference as the program's."""
     from port_bench import control
 
-    spec = tiny.spec(*CELLS["batcher"], limits=dict(LIMITS))
+    spec = tiny.spec(*CELLS[kind], limits=dict(LIMITS))
     r = control.one_seed(spec, 99, 2.0, torch.device("cpu"))
     for side in ("program", "control"):
         assert r[side]["requests"] >= 1 and r[side]["tokens"] >= 21
@@ -115,8 +137,6 @@ def test_float32_program_reads_no_gap(monkeypatch, kind):
     every step (acceptances, rejections, samples, resamples) is the
     reference's own: the check follows the program's sampling exactly, and
     only the program's rounding leaves gaps above 0."""
-    import dataclasses
-
     from port_bench import families
 
     real = families.model_config

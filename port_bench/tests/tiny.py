@@ -1,6 +1,7 @@
 """Tiny configurations of both families for the CPU tests: the real
 vocabularies' special ids (so the grammars and prompts are the real ones),
-two narrow layers, a small taming decoder."""
+two narrow layers, a small taming decoder; and a tiny Chameleon-34B shape
+(swin-norm, 8 query heads over 1 KV head) from the 7B's file."""
 
 from __future__ import annotations
 
@@ -26,6 +27,14 @@ def config(name: str) -> dict:
     return cfg
 
 
+def shaped_34b(cfg: dict) -> dict:
+    """A tiny configuration in Chameleon-34B's shape (Lumina-mGPT-34B):
+    norms after the attention and the MLP (swin-norm), GQA group 8, heads
+    of 16, qk-norm and the int8 cache as the 7B's."""
+    return dict(cfg, hidden_size=128, intermediate_size=256, num_attention_heads=8,
+                num_key_value_heads=1, swin_norm=True)
+
+
 def mix(name: str, **over) -> dict:
     m = json.loads((HERE / "traffic" / "mixes" / f"{name}.json").read_text())
     m = copy.deepcopy(m)
@@ -33,16 +42,19 @@ def mix(name: str, **over) -> dict:
              image_top_k=50, text_top_k=5)
     if m["entry"] == "batcher":
         m.update(batch=2, chunk_steps=4, outstanding=4, trace_every=2, trace_repeat=2)
+    else:
+        m.update(chunk_steps=4, trace_every=2, trace_repeat=2)
     m["check_min_tokens"] = 21 if m["image_px"] == 64 else 4
     m.update(over)
     return m
 
 
-def spec(cell: str, cfg_name: str, mix_name: str, limits=None, **over) -> dict:
+def spec(cell: str, cfg_name: str, mix_name: str, limits=None, shape=None, **over) -> dict:
+    """``shape``: None, or "34b" for :func:`shaped_34b`."""
     from port_bench.run import load_spec
 
     s = load_spec(cell)
-    s["cfg"] = config(cfg_name)
+    s["cfg"] = shaped_34b(config(cfg_name)) if shape == "34b" else config(cfg_name)
     s["mix"] = mix(mix_name, **over)
     s["cellfile"] = {"limits": limits or {"mean_gap": 1e-3, "vq_mean_abs": 1.0,
                                           "vq_max_abs": 255}}

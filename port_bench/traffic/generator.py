@@ -11,6 +11,12 @@ another order (another slot for each): SJD's acceptance follows each
 request's prompt and sampled tokens, and requests drawn per seed change
 the work in the window by 10% and more from seed to seed.
 
+A mix with ``cycle`` sends a ring of ``cycle`` requests over and over:
+request k is ring entry ``(start + k) % cycle``, whose prompt and seed
+follow from that entry, and the run's seed picks ``start``. So one client
+that sends one request after another runs the same ring from every seed,
+beginning at another request.
+
 Prompts follow the configuration's family: Lumina's placeholder text then
 ``<image_start> <size> <size>``; Emu3's ``<bos>`` text, suffix,
 ``<image start>``, size ids, ``<image token>``, against a negative prompt
@@ -91,10 +97,15 @@ class Traffic:
             self.pool.append(rng.integers(lo, hi, n).tolist())
         words = [self.seed & 0xFFFFFFFF, (self.seed >> 32) & 0xFFFFFFFF]
         self.first = np.random.default_rng(words + [1]).permutation(mix["outstanding"])
+        self.cycle = mix.get("cycle")
+        self.start = (int(np.random.default_rng(words + [2]).integers(self.cycle))
+                      if self.cycle else 0)
         self.neg = neg_prompt(cfg, mix)
 
     def request(self, i: int) -> Request:
         k = int(self.first[i]) if i < len(self.first) else i
+        if self.cycle:
+            k = (self.start + k) % self.cycle
         seed = int(np.random.default_rng([POOL_SEED, 2, k]).integers(0, 2**31 - 1))
         return Request(index=i, prompt=_wrap(self.cfg, self.mix, self.pool[k % len(self.pool)]),
                        neg_prompt=self.neg, seed=seed)
