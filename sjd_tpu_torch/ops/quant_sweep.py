@@ -56,15 +56,20 @@ VARIANTS = {
 # (kernel, bits, weight, rows): the 7B's and Emu3-Gen 8B's weights (N, K)
 # at the solo generate window's rows (32), the serve path's (64), the
 # benchmark cells' decode windows (96: Emu3, 3 slots; 160: Lumina, 5
-# slots) and a refill's prefill (990)
+# slots) and a refill's prefill (990); Lumina-mGPT-34B's (d 8192: wq and
+# wo, wk and wv, w_gate and w_up, w_down, the head) at the solo window
 SHAPES = {"wq": (4096, 4096), "w_gate": (11008, 4096), "w_down": (4096, 11008),
           "lm_head": (65536, 4096), "emu3_w_gate": (14336, 4096),
-          "emu3_lm_head": (184622, 4096)}
+          "emu3_lm_head": (184622, 4096), "34b_wq": (8192, 8192), "34b_wk": (1024, 8192),
+          "34b_w_gate": (22016, 8192), "34b_w_down": (8192, 22016),
+          "34b_lm_head": (65536, 8192)}
 CASES = ([("a16", 4, w, m) for m in (32, 64, 96, 160, 990) for w in ("wq", "w_gate", "w_down")]
          + [("a16", 8, "wq", 32)] + [("a16", 8, "lm_head", m) for m in (32, 96, 160)]
          + [("a16", 4, "emu3_w_gate", 96), ("a16", 8, "emu3_lm_head", 96)]
          + [("a8", 4, "wq", 32), ("a8", 4, "w_gate", 32), ("a8", 4, "w_down", 32),
-            ("a8", 8, "lm_head", 32)])
+            ("a8", 8, "lm_head", 32)]
+         + [("a16", 4, w, 32) for w in ("34b_wq", "34b_wk", "34b_w_gate", "34b_w_down")]
+         + [("a16", 8, "34b_lm_head", 32)])
 
 
 def make_copy(name: str, constants: dict) -> Path:

@@ -1395,3 +1395,31 @@ def test_quant_linear_a16_graph_replay_equals_eager(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager2)
+
+
+# Lumina-mGPT-34B's products at W4A16, (N, K, bits): wq and wo, wk and wv
+# (N 1024: 8 tiles of 128 weight rows, so 32 blocks at the split cap of 4 on
+# 132 SMs), w_gate and w_up, w_down (K 22016) and the int8 head
+K1_34B = {"wq_wo": (8192, 8192, 4), "wk_wv": (1024, 8192, 4), "w_gate_w_up": (22016, 8192, 4),
+          "w_down": (8192, 22016, 4), "lm_head": (65536, 8192, 8)}
+
+
+@pytest.mark.parametrize("weight", list(K1_34B))
+def test_quant_linear_a16_34b_shapes(cuda, weight):
+    """K1 at the 34B's solo window (M = 32) within one bf16 rounding of its
+    plain version, one launch; and each row of a 160-row call equal, bit for
+    bit, to the same row computed at 1 and at 32 rows."""
+    from sjd_tpu_torch.ops import quant_linear as ql
+
+    N, K, bits = K1_34B[weight]
+    x, q, s = _quant_inputs(cuda, 160, N, K, bits, seed=34)
+    before = ql.quant_linear_a16.launches
+    got = ql.quant_linear_a16(x[:32].contiguous(), q, s, bits=bits)
+    assert ql.quant_linear_a16.launches == before + 1
+    want = ql.quant_linear_a16_plain(x[:32].contiguous(), q, s, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _bf16_close(got, want)
+    full = ql.quant_linear_a16(x, q, s, bits=bits)
+    assert torch.equal(full[:32], got)
+    assert torch.equal(ql.quant_linear_a16(x[:1].contiguous(), q, s, bits=bits), full[:1])
