@@ -13,12 +13,18 @@
 // q is int8 [N, K] or packed int4 [N, K/2] (split-half nibbles: byte column
 // j holds column j in its low nibble and column j + K/2 in its high one).
 //
-// K1 (quant_linear_kernel_wg). What bounds it: at the decode windows' M
-// (96 to 160 rows) the operations. A 4096 x 4096 int4 projection at M = 160
-// is 5.4 GFLOP, 5.4 us at the bf16 tensor cores' 989 TFLOP/s, against 8.4 MB
-// of packed weight, 2.5 us at 3.35 TB/s. Only wgmma reaches that rate, and
-// only if the weights are widened once per launch, not once per slice of M.
-// What the design does about it:
+// K1 (quant_linear_kernel_wg). What bounds it depends on M. At the batched
+// cells' decode windows (96 to 160 rows) and in a prefill (tiles of up to
+// 256 rows): the operations. A 4096 x 4096 int4 projection at M = 160 is 5.4
+// GFLOP, 5.4 us at the bf16 tensor cores' 989 TFLOP/s, against 8.4 MB of
+// packed weight, 2.5 us at 3.35 TB/s. Only wgmma reaches that rate, and only
+// if the weights are widened once per launch, not once per slice of M. At
+// the solo window's 32 rows: the weight bytes (the same 8.4 MB against 1.1
+// GFLOP). There the time above that bound goes to what each block does per
+// 64-byte chunk of its rows: the same warps widen 128 rows x 64 bytes into
+// bf16 fragments and issue the chunk's wgmmas, whose m64n32k16 shape runs
+// at about a third of the tensor cores' rate; two blocks share an SM. What
+// the design does about it:
 //
 // - The block holds 128 weight rows, two consumer warpgroups of 64 (wgmma's
 //   m), against kN activation rows: M rounded up to 16 (M <= 16) or 32, at
@@ -28,24 +34,35 @@
 //   wgmma.m64n{kN}k16 with A from registers and f32 sums in registers.
 // - A, the weights: each thread widens its fragment from the staged bytes
 //   into registers, as 16-bit reads of two codes (no bank conflicts under
-//   the tile's 64-byte swizzle); int4 nibble v becomes the bf16 pattern of
-//   136 + v, minus 136, int8 goes through an exact f32. Both exact.
+//   the tile's 64-byte swizzle) at offsets fixed for the launch (a row's
+//   swizzle phase is its own); int4 nibble v becomes the bf16 pattern of
+//   136 + v (one lop3 of mask and exponent), minus 136, int8 goes through an
+//   exact f32. Both exact; six instructions widen four int4 codes.
 // - B, the activations: K-major, 128-byte swizzle, one swizzle atom of 64
 //   columns per k16 group of four steps. int4 stages the first half's 64
 //   columns j and the second half's K/2 + j of a 64-byte chunk as two atoms,
 //   so that a thread's two bytes feed one step of each half (low nibbles,
 //   high nibbles).
-// - Loads by TMA: thread 0 asks for each stage's tiles (activations from a
-//   [M][2][K/2] or [M][K] tensor map, weights from [N][Kb]), which land
-//   swizzled and count their bytes on the stage's mbarrier; out-of-range rows
-//   and columns read 0. The ring keeps kStages chunks (up to 8, what shared
-//   memory holds at kN: 3 at 256 rows): the one multiplied, the one whose
-//   last wgmma drains, the rest in flight. (cp.async by every thread, 3072
-//   copies of 16 bytes a chunk at 160 rows, ran the kernel at half this
-//   speed on the H100.)
-// - The wgmmas of a chunk are issued one k16 step after the other, each
-//   waiting only for the one before (which frees its A registers); the first
-//   scales the sums by 0, so no instruction besides wgmma writes them.
+// - Loads by TMA, from a producer: a warp where two blocks share an SM (kN
+//   <= 64), else a warpgroup that hands its registers to the consumers
+//   (setmaxnreg, so that kN / 2 sums a thread fit). One of its threads asks
+//   for each stage's tiles (activations from a [M][2][K/2] or [M][K] tensor
+//   map, weights from [N][Kb]), which land swizzled; out-of-range rows and
+//   columns read 0. Each slot of the ring (kStages chunks, up to 8, what
+//   shared memory holds at kN: 3 at 256 rows) has two mbarriers: full, on
+//   which the tiles count their bytes and the consumers wait, and empty, on
+//   which each consumer warp arrives once the slot's last wgmma has retired
+//   and the producer waits before it refills the slot. No block-wide
+//   barrier is left in the loop, and every slot is in flight. (cp.async by
+//   every thread, 3072 copies of 16 bytes a chunk at 160 rows, ran the
+//   kernel at half this speed on the H100.)
+// - The wgmmas of a chunk are issued one k16 step after the other, each on
+//   its own commit and waiting only for the one before (which frees its A
+//   registers), so that the next step's fragments are widened while a step
+//   runs; the first scales the sums by 0, so no instruction besides wgmma
+//   writes them. (A chunk's eight wgmmas issued back to back on one commit
+//   ran slower on the H100 at 32 rows: each waits for the one before, and
+//   the warp waits with them, with no widening left to overlap.)
 // - The K order inside a row is fixed (chunk by chunk, within a chunk k16
 //   steps in order, int4 alternating halves) and the split sum adds in
 //   split order, so a row's output is bit-identical whatever M is.
@@ -122,6 +139,8 @@ constexpr int kBlocksPerSM = 2;  // blocks resident on each SM (registers capped
 constexpr int kSMs = 132;        // the H100 SXM's
 constexpr int kMaxSplits = 4;    // more splits write more partials than they save
 constexpr bool kStageX = true;  // false only in a timing copy: no activation loads
+constexpr bool kWgMma = true;    // false only in a timing copy: K1 issues no wgmma
+constexpr bool kWgWiden = true;  // false only in a timing copy: K1's weight bytes unwidened
 constexpr int kNT = kWarpRows / 8;        // n8 tiles per warp
 constexpr int kBM = 32;                   // activation rows per block (two m16 tiles)
 constexpr int kChunk = 64;                // weight bytes per row per chunk
@@ -448,14 +467,14 @@ __global__ void __launch_bounds__(Warps<kA8>::kThreads, kBlocksPerSM) quant_line
 // K1: quant_linear_kernel_wg<kBits, kN>, the block's 128 weight rows against
 // kN activation rows on wgmma (the header says why and how).
 
-constexpr int kWgRows = 64;         // weight rows per consumer warpgroup: wgmma's m
-constexpr int kWgThreads = 2 * 128;  // two warpgroups: K1's 128 weight rows (Warps<false>)
+constexpr int kWgRows = 64;           // weight rows per consumer warpgroup: wgmma's m
+constexpr int kWgConsumers = 2 * 128;  // two warpgroups: K1's 128 weight rows (Warps<false>)
 constexpr int kWgMaxN = 256;        // activation rows per block at most: wgmma's largest n
 constexpr int kWgMaxStages = 8;     // chunks in the ring at most
 constexpr int kSmemPerSM = 233472;  // the H100's 228 KB, the driver's 1 KB a block included
 constexpr int kSmemPerBlock = 232448;
-static_assert(kWgThreads / 128 * kWgRows == Warps<false>::kBN &&
-                  Warps<false>::kThreads == kWgThreads,
+static_assert(kWgConsumers / 128 * kWgRows == Warps<false>::kBN &&
+                  Warps<false>::kThreads == kWgConsumers,
               "K1's block: 8 warps of 16 weight rows, two warpgroups");
 
 template <int kBits, int kN>
@@ -467,10 +486,21 @@ struct WgTile {
   static constexpr int kStageBytes = kXBytes + Warps<false>::kBN * kChunk;
   static constexpr int kPerBlock = kSmemPerSM / kBlocks - 1024 < kSmemPerBlock
                                        ? kSmemPerSM / kBlocks - 1024 : kSmemPerBlock;
-  static constexpr int kFit = (kPerBlock - 1024 - 8 * kWgMaxStages) / kStageBytes;
+  static constexpr int kBars = 16 * kWgMaxStages;  // a slot's two mbarriers: full, empty
+  static constexpr int kFit = (kPerBlock - 1024 - kBars) / kStageBytes;
   static constexpr int kStages = kFit < kWgMaxStages ? kFit : kWgMaxStages;
   // the ring, 1 KB to align it to the swizzle's atoms, its mbarriers
-  static constexpr int kSmem = kStages * kStageBytes + 1024 + 8 * kWgMaxStages;
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + kBars;
+  // the block: two consumer warpgroups and the producer. Two blocks share
+  // an SM (kBlocks 2): a producer warp. A block alone on its SM: a producer
+  // warpgroup, which hands its registers to the consumers (setmaxnreg), so
+  // that kN / 2 sums a thread fit beside the A fragments
+  static constexpr int kThreads = kWgConsumers + (kBlocks == 1 ? 128 : 32);
+  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+  static_assert(kBlocks == 2 || (kWgConsumers * kConsumerRegs + 128 * kProducerRegs <= 65536 &&
+                                 65536 / kThreads / 8 * 8 * kThreads >=
+                                     kWgConsumers * kConsumerRegs + 128 * kProducerRegs),
+                "setmaxnreg: the consumers' registers come from the producer's");
   static_assert(kN % 16 == 0 && kN <= kWgMaxN, "wgmma's n: a multiple of 16, at most 256");
   static_assert(kStages >= 3, "the ring holds the chunk multiplied, one draining, one landing");
 };
@@ -568,8 +598,11 @@ QL_WGMMA(256, QL_R_16, (QL_F_16), "{%128, %129, %130, %131}, %132", "%133")
 // subtracted
 __device__ __forceinline__ void nibble_pairs_to_bf16(uint32_t u, uint32_t& lo, uint32_t& hi) {
   const uint32_t t = __byte_perm(u, 0, 0x4140);
-  const uint32_t a = (t & 0x000F000Fu) ^ 0x43084308u;
-  const uint32_t b = ((t >> 4) & 0x000F000Fu) ^ 0x43084308u;
+  // (t & 0x000F000F) ^ 0x43084308 and the same of t >> 4, one lop3 each
+  // (the compiler's own takes two)
+  uint32_t a, b;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;" : "=r"(a) : "r"(t), "r"(0x000F000Fu), "r"(0x43084308u));
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;" : "=r"(b) : "r"(t >> 4), "r"(0x000F000Fu), "r"(0x43084308u));
   const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
   const __nv_bfloat162 ra = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a), off);
   const __nv_bfloat162 rb = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b), off);
@@ -590,26 +623,32 @@ __device__ __forceinline__ uint32_t int8_pair_to_bf16(uint32_t u) {
 // TMA and mbarrier: one thread asks for a whole tile, which lands in shared
 // memory (swizzled as its tensor map says) and counts its bytes on the
 // stage's mbarrier; the threads wait on the barrier's phase
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+               : "memory");
 }
 __device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
 // waits for phase `parity` of the barrier to complete; traps after about
 // 2^31 cycles rather than hang the device
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
+  if (mbar_try(bar, parity)) return;
   const long long t0 = clock64();
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
+  while (!mbar_try(bar, parity))
     if (clock64() - t0 > (1ll << 31)) __trap();
-  }
 }
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                          uint32_t bar) {
@@ -626,18 +665,23 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
+// the consumer warps' barrier (the producer has left)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers) : "memory");
+}
 // the weight tile's 64-byte swizzle (TMA's and CUTLASS's Swizzle<2,4,3>):
 // the 16-byte unit (bits 4-5) XOR bits 7-8
 __device__ __forceinline__ int swz64(int off) { return off ^ (((off >> 7) & 3) << 4); }
 
-// grid: (ceil(N / 128), ceil(M / kN), splits); block: kWgThreads (two
-// consumer warpgroups, each 64 weight rows); dynamic shared memory:
-// WgTile<kBits, kN>::kSmem. tx: the activations' tensor map (int4: [M][2
-// halves][K/2], int8: [M][K], bf16, boxes of kN rows x 64 columns, 128-byte
-// swizzle); tw: the weight's ([N][Kb] bytes, boxes of 128 rows x 64 bytes,
-// 64-byte swizzle).
+// grid: (ceil(N / 128), ceil(M / kN), splits); block: WgTile::kThreads (two
+// consumer warpgroups, each 64 weight rows, and the producer); dynamic
+// shared memory: WgTile<kBits, kN>::kSmem. tx: the activations' tensor map
+// (int4: [M][2 halves][K/2], int8: [M][K], bf16, boxes of kN rows x 64
+// columns, 128-byte swizzle); tw: the weight's ([N][Kb] bytes, boxes of 128
+// rows x 64 bytes, 64-byte swizzle).
 template <int kBits, int kN>
-__global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_linear_kernel_wg(
+__global__ void __launch_bounds__(WgTile<kBits, kN>::kThreads, WgTile<kBits, kN>::kBlocks)
+    quant_linear_kernel_wg(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
     const __nv_bfloat16* __restrict__ s,  // [N]
     __nv_bfloat16* __restrict__ y,        // [M, N]
@@ -646,12 +690,13 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_
     int M, int N, int n_chunks, int splits) {
   using Lay = WgTile<kBits, kN>;
   constexpr int kBN = Warps<false>::kBN;
-  constexpr int kStages = Lay::kStages, kSteps = Lay::kSteps;
+  constexpr int kStages = Lay::kStages, kAtoms = Lay::kAtoms;
   constexpr int kTx = Warps<false>::kBN * kChunk + (kStageX ? Lay::kXBytes : 0);
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_addr(smem);
-  const uint32_t full = sbase + kStages * Lay::kStageBytes;  // a slot's barrier: its bytes in
+  const uint32_t full = sbase + kStages * Lay::kStageBytes;  // slot i's at + 8 i: its bytes in
+  const uint32_t empty = full + 8 * kWgMaxStages;  // slot i's at + 8 i: its wgmmas retired
 
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * kN;
@@ -664,77 +709,112 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_
   // the thread's weight rows in the block: A's rows gid and gid + 8 of its warp
   const int r0 = kWgRows * (warp >> 2) + 16 * (warp & 3) + gid;
 
-  // stage i: chunk c_begin + i, kAtoms activation tiles (int4: the first
-  // half's 64 columns j, then the second half's, K/2 + j), then the
-  // weight tile of 128 rows x 64 bytes
-  const CUtensorMap* txp = &tx;
-  const CUtensorMap* twp = &tw;
-  auto issue = [&](int i) {
-    const uint32_t st = sbase + (i % kStages) * Lay::kStageBytes;
-    const uint32_t bar = full + 8 * (i % kStages);
-    const int c = c_begin + i;
-    mbar_expect(bar, kTx);
-    if constexpr (kStageX) {
-      if constexpr (kBits == 4) {
-        tma_load(st, txp, c * kChunk, 0, m0, bar);
-        tma_load(st + kN * 128, txp, c * kChunk, 1, m0, bar);
-      } else {
-        tma_load(st, txp, c * kChunk, m0, bar);
-      }
-    }
-    tma_load(st + Lay::kXBytes, twp, c * kChunk, n0, bar);
-  };
   if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(full + 8 * i);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kWgConsumers / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int i = 0; i < kStages - 2 && i < n_stages; ++i) issue(i);
+
+  if (warp >= kWgConsumers / 32) {
+    if constexpr (Lay::kBlocks == 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Lay::kProducerRegs));
+    // the producer: one lane keeps every slot of the ring in flight.
+    // Stage i: chunk c_begin + i, kAtoms activation tiles (int4: the first
+    // half's 64 columns j, then the second half's, K/2 + j), then the
+    // weight tile of 128 rows x 64 bytes, into slot i % kStages once each
+    // consumer warp has released the slot's stage before
+    if (tid == kWgConsumers) {
+      for (int i = 0; i < n_stages; ++i) {
+        const int slot = i % kStages;
+        if (i >= kStages) mbar_wait(empty + 8 * slot, (i / kStages + 1) & 1);
+        const uint32_t st = sbase + slot * Lay::kStageBytes;
+        const uint32_t bar = full + 8 * slot;
+        const int c = (c_begin + i) * kChunk;
+        mbar_expect(bar, kTx);
+        if constexpr (kStageX) {
+          if constexpr (kBits == 4) {
+            tma_load(st, &tx, c, 0, m0, bar);
+            tma_load(st + kN * 128, &tx, c, 1, m0, bar);
+          } else {
+            tma_load(st, &tx, c, m0, bar);
+          }
+        }
+        tma_load(st + Lay::kXBytes, &tw, c, n0, bar);
+      }
+    }
+    return;
   }
 
-  // [n8 tile j][row gid, gid + 8][column 2 tig, 2 tig + 1]; the first wgmma
-  // scales them by 0 (zeroed registers would serialize the wgmmas: ptxas
-  // C7515)
+  if constexpr (Lay::kBlocks == 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Lay::kConsumerRegs));
+  // the consumers. acc: [n8 tile j][row gid, gid + 8][column 2 tig, 2 tig +
+  // 1]; the first wgmma scales them by 0 (zeroed registers would serialize
+  // the wgmmas: ptxas C7515)
   float acc[kN / 2];
+  // A's k slots (2t, 2t+1) and (2t+8, 2t+9) of k16 step q of a 64-column
+  // tile are the tile's columns 16q + 2t, + 1 and 16q + 8 + 2t, + 1: weight
+  // bytes 16q + 2t and 16q + 8 + 2t (int4: their low nibbles for the first
+  // half, their high nibbles for the second). In a slot's swizzled weight
+  // tile those of row gid lie at qoff[q] and qoff[q] + 8, those of row gid +
+  // 8 (the same swizzle phase) 512 bytes on
+  int qoff[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) qoff[q] = swz64(r0 * kChunk + 16 * q + 2 * tig);
+  const uint64_t desc0 = b_desc(sbase);
 
+  // a k16 step's wgmma on its own commit, the next step's A fragments
+  // widened while it runs; a stage's slot goes back to the producer once
+  // its last step has retired
+  int slot = 0, before = kStages - 1;  // stage it's slot, stage it - 1's
+  uint32_t phase = 0;                   // of stage it's full barrier
   for (int it = 0; it < n_stages; ++it) {
-    const int slot = it % kStages;
-    mbar_wait(full + 8 * slot, (it / kStages) & 1);  // stage `it` landed
-    __syncthreads();  // and every wgmma of stage it-2 has retired: its slot is free
-    if (tid == 0 && it + kStages - 2 < n_stages) issue(it + kStages - 2);
+    mbar_wait(full + 8 * slot, phase);  // stage `it` landed
     const uint8_t* wst = smem + slot * Lay::kStageBytes + Lay::kXBytes;
-    const uint32_t xst = sbase + slot * Lay::kStageBytes;
-    // A's k slots (2t, 2t+1) and (2t+8, 2t+9) of k16 step q of a 64-column
-    // tile are the tile's columns 16q + 2t, + 1 and 16q + 8 + 2t, + 1:
-    // weight bytes 16q + 2t and 16q + 8 + 2t (int4: their low nibbles for
-    // the first half, their high nibbles for the second)
-    uint32_t raw[16];  // [q][row gid, gid + 8, the same at + 8 columns]
+    uint32_t raw[4][4];  // [q][row gid, gid + 8, the same at + 8 columns]
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int q = i / 4, k = i % 4;
-      const int row = r0 + 8 * (k & 1);
-      raw[i] = *reinterpret_cast<const uint16_t*>(
-          wst + swz64(row * kChunk + 16 * q + 8 * (k >> 1) + 2 * tig));
-    }
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int step = 0; step < kSteps; ++step) {
-      const int q = step / Lay::kAtoms, atom = step % Lay::kAtoms;
+      for (int k = 0; k < 4; ++k)
+        raw[q][k] =
+            *reinterpret_cast<const uint16_t*>(wst + qoff[q] + 512 * (k & 1) + 8 * (k >> 1));
+    // an offset of o bytes adds o >> 4 to a descriptor (shared addresses stay
+    // below 256 KB: its 14-bit address field does not carry)
+    const uint64_t dst = desc0 + ((slot * Lay::kStageBytes) >> 4);
+#pragma unroll
+    for (int step = 0; step < Lay::kSteps; ++step) {
+      const int q = step / kAtoms, atom = step % kAtoms;
       uint32_t a[4];  // rows gid, gid + 8 at slots (2t, 2t+1); the same at (2t+8, 2t+9)
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        if constexpr (kBits == 4) {
+        if constexpr (!kWgWiden) {
+          a[k] = raw[q][k] << (16 * atom);
+        } else if constexpr (kBits == 4) {
           uint32_t lo, hi;
-          nibble_pairs_to_bf16(raw[4 * q + k], lo, hi);
+          nibble_pairs_to_bf16(raw[q][k], lo, hi);
           a[k] = atom ? hi : lo;
         } else {
-          a[k] = int8_pair_to_bf16(raw[4 * q + k]);
+          a[k] = int8_pair_to_bf16(raw[q][k]);
         }
       }
+      const uint64_t desc = dst + ((atom * kN * 128 + 32 * q) >> 4);
       wgmma_fence();
-      Wgmma<kN>::run(acc, a, b_desc(xst + atom * kN * 128 + 32 * q), it > 0 || step > 0);
+      if constexpr (kWgMma) {
+        Wgmma<kN>::run(acc, a, desc, it > 0 || step > 0);
+      } else {
+        asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+      }
       wgmma_commit();
-      wgmma_wait<1>();  // the step before has read its A registers
+      wgmma_wait<1>();  // the step before has retired: its A registers are free
+      if (step == 0 && it > 0 && lane == 0)  // and it closed stage it - 1: the slot is free
+        mbar_arrive(empty + 8 * before);
+    }
+    before = slot;
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
     }
   }
   wgmma_wait<0>();
@@ -750,12 +830,12 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_
     float4* mine = reinterpret_cast<float4*>(part) + (tile * splits + sp) * (kN * kBN / 4);
 #pragma unroll
     for (int j = 0; j < kN / 8; ++j)
-      __stcg(mine + j * kWgThreads + tid,
+      __stcg(mine + j * kWgConsumers + tid,
              make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
     // the tile's last block to arrive adds the partials in split order
     // (fixed: the same for every M; its own from its registers) and zeroes
     // the tile's counter again
-    __syncthreads();  // every partial of this block is written
+    consumer_sync();  // every partial of this block is written
     int* counter = counters + tile;
     int* arrived_last = reinterpret_cast<int*>(smem);
     if (tid == 0) {
@@ -766,7 +846,7 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_
                    : "=r"(before) : "l"(counter) : "memory");
       *arrived_last = before == splits - 1;
     }
-    __syncthreads();
+    consumer_sync();
     if (!*arrived_last) return;
     const float4* first = reinterpret_cast<const float4*>(part) + tile * splits * (kN * kBN / 4);
     constexpr int kBatch4 = 2;  // float4s of every split in flight together
@@ -779,7 +859,7 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<kBits, kN>::kBlocks) quant_
         for (int b = 0; b < kBatch4; ++b) {
           const int j = j0 + b;
           if (j < kN / 8 && g < splits && g != sp)
-            t[g][b] = __ldcg(first + (g * (kN / 8) + j) * kWgThreads + tid);
+            t[g][b] = __ldcg(first + (g * (kN / 8) + j) * kWgConsumers + tid);
         }
 #pragma unroll
       for (int b = 0; b < kBatch4; ++b) {
@@ -931,7 +1011,8 @@ int launch_wg(const void* x, const void* w, const void* s, void* y, void* part, 
   if (!encode_maps<kBits, kN>(&tx, &tw, x, w, M, N, K)) return (int)cudaErrorInvalidValue;
   constexpr int kBN = Warps<false>::kBN;
   const dim3 grid((N + kBN - 1) / kBN, (M + kN - 1) / kN, splits);
-  quant_linear_kernel_wg<kBits, kN><<<grid, kWgThreads, WgTile<kBits, kN>::kSmem, stream>>>(
+  using Lay = WgTile<kBits, kN>;
+  quant_linear_kernel_wg<kBits, kN><<<grid, Lay::kThreads, Lay::kSmem, stream>>>(
       tx, tw, static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(y),
       static_cast<float*>(part), static_cast<int*>(counters), M, N, n_chunks, splits);
   return (int)cudaGetLastError();
@@ -994,7 +1075,7 @@ int resident() {
     return resident(quant_linear_kernel<kBits, kA8>, Warps<kA8>::kThreads,
                     Tile<kBits, kA8>::kSmem, raise_smem_limit<kBits, kA8>());
   } else {
-    return resident(quant_linear_kernel_wg<kBits, kWgMaxN>, kWgThreads,
+    return resident(quant_linear_kernel_wg<kBits, kWgMaxN>, WgTile<kBits, kWgMaxN>::kThreads,
                     WgTile<kBits, kWgMaxN>::kSmem, raise_smem_limit_wg<kBits, kWgMaxN>());
   }
 }

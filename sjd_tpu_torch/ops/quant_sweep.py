@@ -1,22 +1,28 @@
 """Sweep of the quantized-product kernel's tile and ring, on one GPU.
 
-    python3 sjd_tpu_torch/ops/quant_sweep.py [--variants NAME ...] [--against DIR]
+    python3 sjd_tpu_torch/ops/quant_sweep.py [--variants NAME ...] [--cases REGEX]
+                                             [--against DIR]
 
 ``csrc/quant_linear.cu`` keeps its block shapes and rings as plain
 constants (K1's ``kWgMaxStages``; K2's ``kWarpsNA8``, ``kWarpsKA8``,
-``kStages``, ``kBlocksPerSM``; both kernels' ``kMaxSplits``; and
-``kStageX``, which a timing copy sets false to skip the activation loads).
+``kStages``, ``kBlocksPerSM``; both kernels' ``kMaxSplits``), and three
+that only a timing copy changes: ``kStageX`` false skips the activation
+loads, ``kWgMma`` false K1's wgmmas, ``kWgWiden`` false K1's widening of the
+weight bytes (``loads_only`` skips both: what is left is the ring, its
+barriers and the loop).
 For each variant in ``VARIANTS`` this copies the package into
 ``build/quant_sweep/<variant>/`` at the repository root, sets the constants
 in the copy and builds every copy at once (one ``nvcc`` each, through each
 tree's own ``ops/_build.py``). Then one process loads every library and
 times them in turns (the variants in order, then in the reverse order; the
-smaller of the two times is kept) at the 7B's and Emu3-Gen 8B's weight
-shapes (``CASES``): each call on the next of enough weight copies to
-overflow the L2, timed as ``chip_smoke.py`` times its kernels. Each case
+smaller of the two times is kept) at the 7B's, Emu3-Gen 8B's and
+Lumina-mGPT-34B's weight shapes (``CASES``): each call on the next of
+enough weight copies to overflow the L2, timed as ``chip_smoke.py`` times
+its kernels. Each case
 carries every variant's largest difference from the plain version and
 whether it is within tolerance (A16 one bf16 rounding, A8 none), which the
-variants that skip the activation loads are not.
+timing variants are not. ``--cases`` keeps the cases whose name (as printed,
+such as ``a16_int4_34b_wq_m32``) the expression matches.
 
 ``--against DIR``: DIR is the root of another checkout of the repository
 (for example the parent commit, unpacked with ``git archive``). Its kernel
@@ -44,10 +50,15 @@ SWEEP_DIR = REPO / "build" / "quant_sweep"
 
 # each variant: the constants it sets in a copy; the others keep the
 # source's (K1: a ring of at most 8 chunks; K2: 4 warps of 16 weight rows,
-# 2 along K, 4 stages, 2 blocks per SM; both at most 4 splits)
+# 2 along K, 4 stages, 2 blocks per SM; both at most 4 splits). The timing
+# variants split K1's time a chunk: loads_only is the ring alone, no_wgmma
+# adds the widening, no_widen the wgmmas.
 VARIANTS = {
     "default": {},
     "default_nox": dict(kStageX="false"),
+    "no_wgmma": dict(kWgMma="false"),
+    "no_widen": dict(kWgWiden="false"),
+    "loads_only": dict(kWgMma="false", kWgWiden="false"),
     "wg_stages4": dict(kWgMaxStages=4),
     "default_g8": dict(kMaxSplits=8),
     "a8_n128_w16_k1": dict(kWarpsNA8=8, kWarpsKA8=1),
@@ -173,8 +184,14 @@ def _result(proc) -> dict:
     return json.loads(out.strip().splitlines()[-1])
 
 
-def sweep(trees: dict) -> None:
-    """Build every tree at once, then time every library in turns."""
+def case_name(case: tuple) -> str:
+    kind, bits, weight, M = case
+    return f"{kind}_int{bits}_{weight}_m{M}"
+
+
+def sweep(trees: dict, cases: list = CASES) -> None:
+    """Build every tree at once, then time every library in turns over
+    ``cases``."""
     sys.path.insert(0, str(REPO))
     import torch
 
@@ -199,6 +216,8 @@ def sweep(trees: dict) -> None:
                           **b}), flush=True)
     dev = torch.device("cuda")
     for i, (kind, bits, weight, M) in enumerate(CASES):
+        if (kind, bits, weight, M) not in cases:
+            continue
         N, K = SHAPES[weight]
         a8 = kind == "a8"
         g = torch.Generator(device=dev).manual_seed(100 + i)
@@ -236,7 +255,7 @@ def sweep(trees: dict) -> None:
             r["ms"] = min(r["ms"])
             if "against" in ys and r["splits"] == rows["against"]["splits"]:
                 r["equal_to_against"] = bool(torch.equal(ys[name], ys["against"]))
-        print(json.dumps({"case": f"{kind}_int{bits}_{weight}_m{M}", "M": M, "N": N, "K": K,
+        print(json.dumps({"case": case_name((kind, bits, weight, M)), "M": M, "N": N, "K": K,
                           "tolerance": tol, "variants": rows}), flush=True)
         del copies, calls, ys, q, x, xq
         torch.cuda.empty_cache()
@@ -247,6 +266,8 @@ def main() -> int:
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
     ap.add_argument("--against", default=None, help="root of another checkout to time and "
                     "compare with")
+    ap.add_argument("--cases", default=None, help="a regular expression: only the cases whose "
+                    "name (such as a16_int4_34b_wq_m32) it matches")
     ap.add_argument("--build", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.build:
@@ -255,7 +276,10 @@ def main() -> int:
     trees = {name: make_copy(name, VARIANTS[name]) for name in args.variants}
     if args.against:
         trees["against"] = Path(args.against).resolve()
-    sweep(trees)
+    cases = [c for c in CASES if args.cases is None or re.search(args.cases, case_name(c))]
+    if not cases:
+        raise SystemExit(f"quant_sweep: no case matches {args.cases!r}")
+    sweep(trees, cases)
     return 0
 
 

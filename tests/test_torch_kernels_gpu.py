@@ -723,27 +723,37 @@ def test_quant_linear_a16_emu3_shapes_match_plain(cuda, weight, M):
     _bf16_close(got, want)
 
 
-@pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
-@pytest.mark.parametrize("shape", [(4096, 4096), (11008, 4096), (4096, 11008)],
-                         ids=["split", "one_split", "down"])
+# (N, K, bits): the 7B's wq (several splits), w_gate (one split) and w_down;
+# Lumina-mGPT-34B's wk, wq, w_gate, w_down and int8 head (K1 only)
+ROW_COUNT_SHAPES = {"split": (4096, 4096, 4), "one_split": (11008, 4096, 4),
+                    "down": (4096, 11008, 4), "34b_wk": (1024, 8192, 4),
+                    "34b_wq": (8192, 8192, 4), "34b_w_gate": (22016, 8192, 4),
+                    "34b_w_down": (8192, 22016, 4), "34b_lm_head": (65536, 8192, 8)}
+
+
+@pytest.mark.parametrize(
+    "shape,a8", [pytest.param(ROW_COUNT_SHAPES[name], a8, id=f"{name}-{'a8' if a8 else 'a16'}")
+                 for name in ROW_COUNT_SHAPES for a8 in (False, True)
+                 if not (a8 and name.startswith("34b"))])
 def test_quant_linear_rows_do_not_depend_on_the_row_count(cuda, shape, a8):
     """A row's output is bit-identical whether it is multiplied alone, in a
     decode window (32 rows), a serve window (64), the 3-slot cell's window
-    (96) or a prefill (160)."""
+    (96), the 5-slot cell's (160) or a refill's prefill (990: K1's widest
+    tiles, 256 rows)."""
     from sjd_tpu_torch.models.transformer import _quantize_act
     from sjd_tpu_torch.ops import quant_linear as ql
 
-    N, K = shape
-    x, q, s = _quant_inputs(cuda, 160, N, K, 4, seed=3)
+    N, K, bits = shape
+    x, q, s = _quant_inputs(cuda, 990, N, K, bits, seed=3)
 
     def run(rows):
         if a8:
             xq, xs = _quantize_act(rows)
-            return ql.quant_linear_a8(xq, xs, q, s, bits=4)
-        return ql.quant_linear_a16(rows, q, s, bits=4)
+            return ql.quant_linear_a8(xq, xs, q, s, bits=bits)
+        return ql.quant_linear_a16(rows, q, s, bits=bits)
 
     full = run(x)
-    for m in (1, 32, 64, 96):
+    for m in (1, 32, 64, 96, 160):
         assert torch.equal(run(x[:m].contiguous()), full[:m]), m
     assert torch.equal(run(x[37:38].contiguous()), full[37:38])
 
@@ -759,14 +769,14 @@ def test_quant_linear_ragged_cases_are_ragged(cuda, a8):
     assert N % ql.tile(a8)[0] and g > 1 and (K // 2 // 64) % g, (ql.tile(a8), g)
 
 
-def _wq_split_call(cuda, a8, seed=5):
-    """A product at wq's shape in a generate window (32 rows, int4 4096 x
-    4096: several splits), as a call without arguments, and x's device."""
+def _wq_split_call(cuda, a8, shape=(4096, 4096), seed=5):
+    """A product in a generate window (32 rows) against an int4 weight of
+    ``shape`` (by default wq's 4096 x 4096: several splits), as a call
+    without arguments, and x's device."""
     from sjd_tpu_torch.models.transformer import _quantize_act
     from sjd_tpu_torch.ops import quant_linear as ql
 
-    M, N, K = 32, 4096, 4096
-    assert ql.splits(N, K, 4, a8) > 1
+    M, (N, K) = 32, shape
     x, q, s = _quant_inputs(cuda, M, N, K, 4, seed=seed)
     if a8:
         xq, xs = _quantize_act(x)
@@ -774,14 +784,19 @@ def _wq_split_call(cuda, a8, seed=5):
     return (lambda: ql.quant_linear_a16(x, q, s, bits=4)), x.device
 
 
-@pytest.mark.parametrize("a8", [False, True], ids=["a16", "a8"])
-def test_quant_linear_graph_replays_equal_the_eager_call(cuda, a8):
-    """The split sum inside the launch, under a CUDA graph: each of three
-    replays equals the eager call bit for bit, and every arrival counter is
-    0 again afterwards (the next launch and replay find them so)."""
+@pytest.mark.parametrize("a8,shape", [(False, (4096, 4096)), (True, (4096, 4096)),
+                                      (False, (22016, 8192))],
+                         ids=["a16", "a8", "a16-34b_w_gate"])
+def test_quant_linear_graph_replays_equal_the_eager_call(cuda, a8, shape):
+    """Under a CUDA graph, each of three replays equals the eager call bit
+    for bit, and every arrival counter is 0 again afterwards (the next
+    launch and replay find them so): at wq's shape the split sum inside the
+    launch, at the 34B's w_gate (one split over 172 row tiles) every slot of
+    K1's ring refilled many times over."""
     from sjd_tpu_torch.ops import quant_linear as ql
 
-    call, dev = _wq_split_call(cuda, a8)
+    assert (ql.splits(*shape, 4, a8) > 1) == (shape == (4096, 4096))
+    call, dev = _wq_split_call(cuda, a8, shape)
     want = call()  # eager: sizes the counters before the capture
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -807,6 +822,7 @@ def test_quant_linear_capture_does_not_grow_the_counters(cuda, monkeypatch):
     call outside a capture grows it and runs."""
     from sjd_tpu_torch.ops import quant_linear as ql
 
+    assert ql.splits(4096, 4096, 4, False) > 1
     call, dev = _wq_split_call(cuda, False)
     tiles_n, tiles_m, _ = ql.grid(32, 4096, 4096, 4, False)
     small = torch.zeros(tiles_n * tiles_m - 1, dtype=torch.int32, device=dev)
